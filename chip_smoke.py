@@ -6,21 +6,34 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      no CUDA device is a failure, there is no CPU fallback;
-  2. build the four CUDA kernels from racing_slam_tpu_torch/csrc;
+  2. build the five CUDA kernels from racing_slam_tpu_torch/csrc;
   3. each kernel against its plain-PyTorch twin on the card, at the shapes
-     of the main path (640x480 frame, P=4096 map points x O=8 observations,
-     K=2400 keypoints, commit BA over 2432 points and 32 cameras), with
-     CUDA-event times (median of 25 runs after warm-up);
-  4. the slice on the card: the 304-frame bench world of seed 3 (640x480),
-     Slam.initialize() + run_batched(batch=48) with the launch counters set
-     to 0 just before; accuracy (full-trajectory Sim(3) ATE, coverage) is
-     held to ATE <= 10 % and coverage >= 0.85, every kernel must have run.
+     of the main paths (640x480 frame; P=4096 map points x O=8
+     observations x K=2400 keypoints at D=128 and D=256; commit BA over
+     2432 points and 32 cameras; attention at [2400, 4, 32]), with
+     CUDA-event times (median of 25 runs after warm-up), the least time
+     the card could take for the same work (bound_ms) and, for attention,
+     one PyTorch call computing the same function (library_ms);
+     SuperPoint on the card against the same network on the CPU;
+  4. three paths over the 304-frame bench world of seed 3 (640x480), each
+     Slam.initialize() + run_batched(batch=48) with the launch counters
+     set to 0 just before and read just after: the classical slice
+     (kernels K1-K4), the learned path (SuperPoint + LightGlue, K2-K4 and
+     K6) and the `lightglue` variant (classical frontend + LightGlue, K1-K4
+     and K6). Each is held to ATE <= 10 % and coverage >= 0.85 and one host
+     read per tracked frame, and every kernel of the path must have run.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
+
+Options (the defaults are the check above): --seeds 3,8 runs every path on
+each listed seed's world (the kernel table reads the first seed's runs);
+--profile 96 replays each path of the first seed and profiles its first 96
+tracked frames.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -33,6 +46,26 @@ import numpy as np
 SEED = 3
 N_FRAMES = 304
 BATCH = 48
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet), and the
+# special-function units' exp rate: 16 results per SM per
+# clock (CUDA programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "exp": 16 * 132 * 1.98e9}
+
+
+def bound(n_bytes: float, ops: dict) -> dict:
+    """The least time in ms for moving `n_bytes` (each input read once, each
+    output written once) and doing `ops` ({type: count}) on units that run
+    side by side: the larger of the memory time and the slowest unit."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(*a):
@@ -103,27 +136,33 @@ def check_frontend(frame: np.ndarray, dev) -> dict:
             f"|blur2| err {np.abs(b - b0).max():.3e}, peak flips {flips:.2e}")
     ms = cuda_ms(lambda: k.corner_frontend_fused(img, mask))
     plain = cuda_ms(lambda: k.corner_frontend_fused_reference(img, mask))
+    # Per pixel: blur sigma 1.2 (2 x 9 taps) 36, Sobel 24, tensor products
+    # 3, 3x3 box sums 18, min eigenvalue ~10, gating 2, 15x15 NMS max 28,
+    # descriptor blur sigma 2 (2 x 13 taps) 52: ~173 float32 operations.
     return dict(name="corner_frontend_fused", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None, **bound(nbytes(img, mask) + 3 * nbytes(img),
+                                         {"f32": 173 * H * W}),
                 source="racing_slam_tpu_torch/csrc/frontend_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/frontend_kernel.py:167")
 
 
-def check_match(dev) -> dict:
-    """K2 at P=4096, O=8, D=128, K=2400 on a 640x480 frame, radius 28 px,
-    with planted exact ties (duplicate keypoints within the radius).
+def check_match(dev, D: int = 128) -> dict:
+    """K2 at P=4096, O=8, K=2400 on a 640x480 frame, radius 28 px, with
+    planted exact ties (duplicate keypoints within the radius); D=128 for
+    the classical descriptors, D=256 for SuperPoint's.
 
-    Tolerances: the kernel and the twin sum the 128 bf16 products in a
-    different order, so squared distances agree to 1e-5 (128 terms of
-    float32 rounding) and a keypoint choice may flip only at a near-tie:
-    >= 99.9 % of the points must pick the same keypoint, every planted tie
-    must go to the lower index, and distances must agree where both pick
-    the same keypoint."""
+    Tolerances: the kernel and the twin sum the D bf16 products in a
+    different order, so squared distances agree to 1e-5 (a few hundred
+    terms of float32 rounding) and a keypoint choice may flip only at a
+    near-tie: >= 99.9 % of the points must pick the same keypoint, every
+    planted tie must go to the lower index, and distances must agree where
+    both pick the same keypoint."""
     import torch
 
     from racing_slam_tpu_torch.ops.kernels import match as k
 
     rng = np.random.default_rng(7)
-    P, O, D, K = 4096, 8, 128, 2400
+    P, O, K = 4096, 8, 2400
     kp_uv = np.stack([rng.uniform(0, 640, K), rng.uniform(0, 480, K)], -1).astype(np.float32)
     kp_desc = rng.standard_normal((K, D)).astype(np.float32)
     kp_desc /= np.linalg.norm(kp_desc, axis=-1, keepdims=True)
@@ -148,18 +187,26 @@ def check_match(dev) -> dict:
     bk, bd, rk, rd = [x.cpu().numpy() for x in (bk, bd, rk, rd)]
     same = bk == rk
     agree = same.mean()
-    assert agree >= 0.999, f"K2 keypoint agreement {agree}"
+    assert agree >= 0.999, f"K2 D={D} keypoint agreement {agree}"
     # Where the twin picked a planted pair's lower index, the pair tied
     # exactly: the kernel must pick that same (lower) index.
     tie_pts = np.isin(rk, np.arange(0, 200, 2)) & (rd < 1e9)
     assert (bk[tie_pts] == rk[tie_pts]).all(), "K2 planted tie not resolved to the lower index"
     err = float(np.abs(bd[same] - rd[same]).max())
-    assert err <= 1e-5, f"K2 distance error {err}"
-    log(f"K2 guided match: keypoint agreement {agree:.5f}, |d2| err {err:.3e}, "
+    assert err <= 1e-5, f"K2 D={D} distance error {err}"
+    log(f"K2 guided match D={D}: keypoint agreement {agree:.5f}, |d2| err {err:.3e}, "
         f"gated points matched {(bd < 1e9).sum()}")
     ms = cuda_ms(lambda: k.guided_match_stage1(*args, radius_px=28.0))
     plain = cuda_ms(lambda: k.guided_match_stage1_reference(*args, radius_px=28.0))
+    # The work this data needs: a pixel-gate test per (point, keypoint)
+    # (~5 float32 operations) and, for the pairs that pass every gate, a
+    # D-long bf16 dot product (2D operations) per valid observation.
+    d2 = ((uv_p[:, None, :] - kp_uv[None, :, :]) ** 2).sum(-1)
+    passing = (d2 <= 28.0 ** 2) & gate[:, None] & kp_ok[None, :]
+    dots = int((passing.sum(1) * obs_valid.sum(1)).sum())
     return dict(name="guided_match_stage1", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None,
+                **bound(nbytes(*args) + P * 8, {"f32": 5 * P * K, "bf16": 2 * D * dots}),
                 source="racing_slam_tpu_torch/csrc/match_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/match_kernel.py:115")
 
@@ -203,7 +250,12 @@ def check_motion_ba(dev) -> dict:
         f"iters {out[7]:.0f} vs {ref[7]:.0f}")
     ms = cuda_ms(lambda: k.motion_ba_lm(*args, **kw))
     plain = cuda_ms(lambda: k.motion_ba_lm_reference(*args, **kw))
+    # Per valid row and iteration: transform and project (~24), residual
+    # and 2x6 Jacobian (~42), Huber weight (~5), 21 H + 6 g sums over two
+    # rows (~108), trial cost (~30): ~210 float32 operations.
+    ops = 210 * int(valid.sum()) * int(out[7])
     return dict(name="motion_ba_lm", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None, **bound(nbytes(*args) + 8 * 4, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/motion_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/motion_ba_kernel.py:309")
 
@@ -300,9 +352,123 @@ def check_structure_ba(dev) -> dict:
     assert np.isfinite(pts2).all() and np.array_equal(pts2[:100], Xn[:100].astype(np.float32))
     ms = cuda_ms(lambda: k.structure_ba_lm(*args, **kw))
     plain = cuda_ms(lambda: k.structure_ba_lm_reference(*args, **kw))
+    # Per included observation and iteration: transform, project, camera
+    # and point Jacobians, and the Hpp, Y, Hcc, g sums (~300 float32
+    # operations); per point: damped 3x3 inverse, Schur terms and back
+    # substitution (~150). Iterations as the main path runs them (exit on).
+    ops = int(out2[7]) * (300 * int(include.sum()) + 150 * P)
     return dict(name="structure_ba_lm", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=None,
+                **bound(nbytes(*args) + 8 * 4 + P * 12, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/structure_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/structure_ba_kernel.py:336")
+
+
+def check_attention(dev) -> dict:
+    """K6 at LightGlue's main-path shape: q, k, v [2400, 4, 32], about 80 %
+    of the keys valid; then every key masked (uniform attention), and a
+    ragged key count (2333, not a multiple of either side's key tile).
+
+    Tolerance: max abs error <= 5 % of the twin's output RMS (about 0.038
+    at 80 % of 2400 keys valid, so about 1.9e-3; 0.023, so 1.2e-3, when
+    every key is masked). Both round q, k, v and p to bf16 and sum in
+    float32, but the kernel rounds p against the running max of 64-key
+    tiles and the twin of 512-key tiles, so a p may round to the
+    neighbouring bf16 value (2^-8 relative) on one side only. On these
+    shapes the twin at 64-key tiles stays within 1 % of the RMS of itself
+    at 512, and a kernel that dropped the last partial key tile (32 keys of
+    2400, 29 of 2333) would exceed the limit at least 5x
+    (tests/test_torch_models.py checks both on the CPU). library_ms is one call of
+    torch's scaled_dot_product_attention on the same inputs in bf16 with an
+    additive -1e9 float mask (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from racing_slam_tpu_torch.ops.kernels import attention as k
+
+    rng = np.random.default_rng(9)
+    H, dh = 4, 32
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    err = 0.0
+    for name, Kq, Kk, valid in (("80 % valid", 2400, 2400, 0.8), ("all masked", 2400, 2400, 0.0),
+                                ("ragged", 2400, 2333, 0.8)):
+        q, kk, v = [t(rng.normal(size=(n, H, dh)).astype(np.float32)) for n in (Kq, Kk, Kk)]
+        mask = t(rng.random(Kk) < valid)
+        got = k.flash_mha(q, kk, v, mask)
+        want = k.flash_mha_reference(q, kk, v, mask)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        tol = 0.05 * float(want.pow(2).mean().sqrt())
+        assert torch.isfinite(got).all() and e <= tol, f"K6 {name}: max abs err {e} > {tol}"
+        log(f"K6 flash attention {name} [{Kq}, {Kk}]: max abs err {e:.3e} (limit {tol:.3e})")
+        err = max(err, e)
+        if name == "80 % valid":
+            args = (q, kk, v, mask)
+    q, kk, v, mask = args
+    ms = cuda_ms(lambda: k.flash_mha(*args))
+    plain = cuda_ms(lambda: k.flash_mha_reference(*args))
+    qb, kb, vb = [x.to(torch.bfloat16).permute(1, 0, 2)[None] for x in (q, kk, v)]
+    add = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[None, None, None, :]
+    lib = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add)[0].permute(1, 0, 2)
+    log(f"K6 vs scaled_dot_product_attention (bf16): max abs diff "
+        f"{float((lib.float() - k.flash_mha(*args)).abs().max()):.3e}")
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add))
+    Kq, Kk = q.shape[0], kk.shape[0]
+    return dict(name="flash_mha", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=library,
+                **bound(nbytes(q, kk, v, mask) + nbytes(q),  # inputs + the f32 output
+                        {"bf16": 4 * Kq * Kk * H * dh, "exp": Kq * Kk * H}),
+                source="racing_slam_tpu_torch/csrc/attention_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/attention_kernel.py:88")
+
+
+def superpoint_frontend(dev):
+    from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
+
+    params = superpoint.load_params(WEIGHTS_DIR / "superpoint.npz", device=dev)
+    return superpoint.SuperPointFrontend(params=params, device=dev)
+
+
+def check_superpoint(frame: np.ndarray, dev) -> dict:
+    """SuperPoint (committed weights) on a 640x480 bench frame: the card
+    (cuDNN, TF32 on bf16-rounded operands) against the same network on the
+    CPU (float32). Both sum exact bf16 products in float32, in another
+    order, so tolerances are tests/test_torch_models.py's against JAX:
+    keypoints at the same position (0.05 px) on >= 99 %, heatmap within
+    1.5e-2. Times the convolution stack and the whole extraction."""
+    import torch
+
+    from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
+
+    fe = superpoint_frontend(dev)
+    cpu = superpoint.SuperPointFrontend(
+        params=superpoint.load_params(WEIGHTS_DIR / "superpoint.npz", device="cpu"), device="cpu")
+    img = torch.from_numpy(frame.astype(np.float32) / 255.0)
+    got = fe.extract(img.to(dev))
+    want = cpu.extract(img)
+    heat = superpoint.heads(fe.params, superpoint.backbone(fe.params, img.to(dev)))[0].cpu()
+    heat0 = superpoint.heads(cpu.params, superpoint.backbone(cpu.params, img))[0]
+    herr = float((heat - heat0).abs().max())
+    same = float(((got.xy.cpu() - want.xy).abs() < 0.05).all(-1).float().mean())
+    log(f"SuperPoint card vs CPU: keypoints at the same position {same:.4f}, "
+        f"heatmap max abs err {herr:.3e}")
+    assert same >= 0.99 and herr < 1.5e-2, (same, herr)
+    H, W = frame.shape
+    # Convolution multiply-adds x 2 at 640x480 (encoder, both heads).
+    flops, cin, hw = 0, 1, H * W
+    for stage, c in enumerate(superpoint.ENCODER_CHANNELS):
+        flops += 2 * 9 * (cin * c + c * c) * hw
+        cin = c
+        if stage < 3:
+            hw //= 4
+    flops += 2 * hw * (9 * cin * 256 * 2 + 256 * 65 + 256 * 256)
+    x = img.to(dev)
+    conv_ms = cuda_ms(lambda: superpoint.heads(fe.params, superpoint.backbone(fe.params, x)))
+    extract_ms = cuda_ms(lambda: fe.extract(x))
+    res = dict(gflop=flops / 1e9, conv_ms=conv_ms, extract_ms=extract_ms,
+               bound_ms_bf16=1e3 * flops / PEAK_OPS_S["bf16"], bound_ms_tf32=1e3 * flops / 495e12)
+    log("superpoint: " + json.dumps(res))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -346,23 +512,68 @@ def full_trajectory_ate(slam, gt_poses: np.ndarray, n_frames: int) -> dict:
     return dict(ate=tot_ate, length=max(tot_len, 1e-9), coverage=covered / n_frames, n_kf=n_kf)
 
 
-def run_slice(dev, kernels: list, cam, frames: list, gt: np.ndarray) -> dict:
+PATHS = {
+    # name: (frontend, matcher, kernels the path must launch)
+    "classical": ("classical", "classical", ("corner_frontend_fused", "guided_match_stage1",
+                                             "motion_ba_lm", "structure_ba_lm")),
+    "learned": ("superpoint", "lightglue", ("guided_match_stage1", "motion_ba_lm",
+                                            "structure_ba_lm", "flash_mha")),
+    "lightglue": ("classical", "lightglue", ("corner_frontend_fused", "guided_match_stage1",
+                                             "motion_ba_lm", "structure_ba_lm", "flash_mha")),
+}
+
+
+def profile_path(slam, frames: list, n: int) -> dict:
+    """Replay the path (same seed, same draws) and profile its first `n`
+    tracked frames after the bootstrap with torch.profiler: wall time, the
+    device time of every kernel and copy (each device event counted once),
+    the busy share, and the kernels taking the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    slam.reset_run(ArraySource(frames))
+    assert slam.initialize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        slam.run_batched(max_frames=n, batch=BATCH)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    by_name: Counter = Counter()
+    n_events = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+            n_events += 1
+    busy_ms = sum(by_name.values())
+    return dict(frames=n, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+                device_events=n_events,
+                top_ms={k: round(v, 3) for k, v in by_name.most_common(10)})
+
+
+def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
+             profile_frames: int = 0) -> dict:
     import torch
 
     from racing_slam_tpu_torch.slam.config import SlamConfig
     from racing_slam_tpu_torch.slam.pipeline import Slam
     from racing_slam_tpu_torch.utils.video import ArraySource
 
-    # bench.py headline config with local_ba_window=1 and refine_every_frames=0.
+    frontend_kind, matcher, needed = PATHS[path]
+    # bench.py headline config with local_ba_window=1 and refine_every_frames=0;
+    # bench.py --variant learned|lightglue set matcher="lightglue" (threshold 0.35).
     cfg = SlamConfig(
         match_radius_px=28.0, ransac_threshold_px=0.4, cull_reproj_px=3.0, inlier_px=3.0,
         triangulation_reproj_px=2.0, pose_prediction="constant_velocity",
         triangulate_points=True, bundle_adjust=True, optimize_pose=True, cull_points=True,
         max_keyframes=32, map_capacity=4096, max_observations=8, archive_capacity=512,
         reproj_monitor_every=0, refine_every_frames=0, local_ba_window=1,
-        keyframe_match_ratio=0.8,
+        keyframe_match_ratio=0.8, matcher=matcher,
     )
-    slam = Slam(cam, ArraySource(frames), cfg, device=dev)
+    frontend = superpoint_frontend(dev) if frontend_kind == "superpoint" else None
+    slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev)
     for kern in kernels:
         kern["module"].launches = 0
     torch.cuda.synchronize()
@@ -370,7 +581,7 @@ def run_slice(dev, kernels: list, cam, frames: list, gt: np.ndarray) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         t0 = time.time()
-        assert slam.initialize(), "bootstrap failed"
+        assert slam.initialize(), f"{path}: bootstrap failed"
         t_init = time.time() - t0
         t1 = time.time()
         n = slam.run_batched(batch=BATCH)
@@ -380,7 +591,7 @@ def run_slice(dev, kernels: list, cam, frames: list, gt: np.ndarray) -> dict:
     launches = {kern["name"]: kern["module"].launches for kern in kernels}
     flagged = [w for w in caught if "synchroniz" in str(w.message)]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
-    log(f"synchronising calls flagged by torch.cuda sync debug mode: {len(flagged)}, "
+    log(f"{path}: synchronising calls flagged by torch.cuda sync debug mode: {len(flagged)}, "
         f"by source line: {dict(sources.most_common(8))}")
     acc = full_trajectory_ate(slam, gt, len(frames))
     n_commits = sum(i.is_keyframe for b in slam.batch_infos for i in b)
@@ -395,19 +606,30 @@ def run_slice(dev, kernels: list, cam, frames: list, gt: np.ndarray) -> dict:
         sync_debug_flagged=len(flagged),
         launches=launches,
     )
-    log("slice: " + json.dumps(res))
-    assert res["ate_pct"] <= 10.0, f"ATE {res['ate_pct']:.2f} % > 10 %"
-    assert res["coverage"] >= 0.85, f"coverage {res['coverage']:.3f} < 0.85"
+    log(f"{path}: " + json.dumps(res))
+    assert res["ate_pct"] <= 10.0, f"{path}: ATE {res['ate_pct']:.2f} % > 10 %"
+    assert res["coverage"] >= 0.85, f"{path}: coverage {res['coverage']:.3f} < 0.85"
+    assert res["syncs_per_tracked_frame"] <= 1.0, res["host_syncs"]
     bootstraps = 1 + slam.n_reinits
-    assert launches["corner_frontend_fused"] >= tracked, launches
-    assert launches["guided_match_stage1"] >= 2 * tracked, launches
-    assert launches["motion_ba_lm"] >= 2 * tracked, launches
-    assert launches["structure_ba_lm"] >= n_commits + bootstraps, launches
+    want = {"corner_frontend_fused": tracked, "guided_match_stage1": 2 * tracked,
+            "motion_ba_lm": 2 * tracked, "structure_ba_lm": n_commits + bootstraps,
+            "flash_mha": 8 * (n_commits + bootstraps)}  # 2 layers x 4 attention sites
+    for name in needed:
+        assert launches[name] >= want[name], f"{path}: {name} launched {launches[name]} < {want[name]}"
+    if profile_frames:
+        log(f"{path} profile: " + json.dumps(profile_path(slam, frames, profile_frames)))
     return res
 
 
 def main() -> int:
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seeds", default=str(SEED))
+    ap.add_argument("--profile", type=int, default=0,
+                    help="profile this many tracked frames of each path (a replay)")
+    args = ap.parse_args()
+    seeds = [int(x) for x in args.seeds.split(",")]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU fallback here", file=sys.stderr)
@@ -430,19 +652,35 @@ def main() -> int:
 
     cam = Camera(fx=480.0, fy=480.0, cx=320.0, cy=240.0, width=640, height=480)
     t0 = time.time()
-    frames, gt = render_bench_world(SEED, cam, N_FRAMES)
-    log(f"rendered {len(frames)} frames of seed {SEED} in {time.time() - t0:.1f} s")
+    frames, gt = render_bench_world(seeds[0], cam, N_FRAMES)
+    log(f"rendered {len(frames)} frames of seed {seeds[0]} in {time.time() - t0:.1f} s")
 
     kernels = [check_frontend(frames[1], dev), check_match(dev), check_motion_ba(dev),
-               check_structure_ba(dev)]
+               check_structure_ba(dev), check_attention(dev)]
+    d256 = check_match(dev, D=256)
+    kernels[1]["d256"] = {key: d256[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
     for kern in kernels:
-        log(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain PyTorch {kern['plain_ms']:.4f} ms")
+        log(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain PyTorch {kern['plain_ms']:.4f} ms, "
+            f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library {kern['library_ms']}")
+    check_superpoint(frames[1], dev)
 
-    res = run_slice(dev, kernels, cam, frames, gt)
-    table = [dict(name=kern["name"], route="cuda", source=kern["source"],
-                  replaces=kern["replaces"], launches=res["launches"][kern["name"]],
-                  max_abs_err=kern["max_abs_err"], ms=kern["ms"], plain_ms=kern["plain_ms"])
-             for kern in kernels]
+    runs = {path: run_path(path, dev, kernels, cam, frames, gt, args.profile) for path in PATHS}
+    for seed in seeds[1:]:
+        frames_s, gt_s = render_bench_world(seed, cam, N_FRAMES)
+        for path in PATHS:
+            log(f"seed {seed}:")
+            run_path(path, dev, kernels, cam, frames_s, gt_s)
+    table = []
+    for kern in kernels:
+        by_path = {path: r["launches"][kern["name"]] for path, r in runs.items()}
+        row = dict(name=kern["name"], route="cuda", source=kern["source"],
+                   replaces=kern["replaces"], launches=sum(by_path.values()),
+                   launches_by_path=by_path)
+        row.update({key: kern[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")})
+        if "d256" in kern:
+            row["d256"] = kern["d256"]
+        table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,14 @@ has a counterpart of the same name:
                      two-view geometry, as plain PyTorch on tensors.
 - ``ops.kernels``  : the hand-written CUDA kernels (sources in ``csrc/``),
                      each with a plain-PyTorch twin that the CPU runs.
-- ``slam``         : world state, frontend and the tracking pipeline.
+- ``models``       : the learned path, SuperPoint and LightGlue.
+- ``slam``         : world state, frontends and the tracking pipeline.
 - ``utils``        : synthetic sequences and JAX-state conversion.
 
-Functions take their device from the tensors they are given. Importing the
-package turns TF32 off for float32 matmuls and convolutions (see ``device``).
+Functions take their device from the tensors they are given; the entry
+points that create state or weights default to the card and raise without
+one unless given ``device="cpu"``. Importing the package turns TF32 off for
+float32 matmuls and convolutions (see ``device``).
 """
 
 from .device import use_full_fp32

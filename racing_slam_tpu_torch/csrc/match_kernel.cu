@@ -13,8 +13,11 @@
 // point's pixel gate and evaluates the descriptor distance only for the
 // pairs that pass (a ballot, walked in keypoint order so the running strict
 // minimum keeps the lowest index). The point's O bf16 observation
-// descriptors stay in registers, D/32 values per lane; a pair's O dot
-// products and the keypoint norm are warp-shuffle reductions.
+// descriptors stay in registers, D/32 values per lane; the kernel is
+// instantiated for DPL = 4 (D <= 128, the classical path's descriptors) and
+// DPL = 8 (D <= 256, the learned path's SuperPoint descriptors), so the
+// 128-d path holds no zero padding. A pair's O dot products and the keypoint
+// norm are warp-shuffle reductions.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -25,7 +28,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int KT = 256;      // keypoints staged per tile
 constexpr int MAX_O = 8;
-constexpr int MAX_DPL = 4;   // descriptor values per lane: D <= 128
 constexpr float BIG = 1e9f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -34,6 +36,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int DPL>  // descriptor values per lane: D <= 32 * DPL
 __global__ void __launch_bounds__(THREADS)
 guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ gate_p,
                     const __nv_bfloat16* __restrict__ obs_desc,
@@ -51,7 +54,7 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
   const bool active = p < P && gate_p[p] != 0;  // uniform within the warp
   const int dpl = D / 32;
 
-  float od[MAX_O][MAX_DPL];
+  float od[MAX_O][DPL];
   float on[MAX_O];
   bool ov[MAX_O];
   float pu = 0.0f, pv = 0.0f;
@@ -60,7 +63,7 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
     on[o] = 0.0f;
     ov[o] = false;
 #pragma unroll
-    for (int j = 0; j < MAX_DPL; ++j) od[o][j] = 0.0f;
+    for (int j = 0; j < DPL; ++j) od[o][j] = 0.0f;
   }
   if (active) {
     pu = uv_p[2 * p];
@@ -71,7 +74,7 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
         ov[o] = obs_valid[p * O + o] != 0;
         float n = 0.0f;
 #pragma unroll
-        for (int j = 0; j < MAX_DPL; ++j) {
+        for (int j = 0; j < DPL; ++j) {
           if (j < dpl) {
             const float x = __bfloat162float(obs_desc[((size_t)p * O + o) * D + lane + 32 * j]);
             od[o][j] = x;
@@ -106,10 +109,10 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
         const int src = __ffs(bits) - 1;
         bits &= bits - 1;
         const int kk = k0 + i0 + src;
-        float kd[MAX_DPL];
+        float kd[DPL];
         float kn = 0.0f;
 #pragma unroll
-        for (int j = 0; j < MAX_DPL; ++j) {
+        for (int j = 0; j < DPL; ++j) {
           kd[j] = 0.0f;
           if (j < dpl) {
             kd[j] = __bfloat162float(__float2bfloat16_rn(kp_desc[(size_t)kk * D + lane + 32 * j]));
@@ -123,7 +126,7 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
           if (o < O) {
             float c = 0.0f;
 #pragma unroll
-            for (int j = 0; j < MAX_DPL; ++j) c += od[o][j] * kd[j];
+            for (int j = 0; j < DPL; ++j) c += od[o][j] * kd[j];
             c = warp_sum(c);
             const float dd = fmaxf(on[o] + kn - 2.0f * c, 0.0f);
             if (ov[o]) d = fminf(d, dd);
@@ -149,11 +152,16 @@ SLAM_API int slam_guided_match(const float* uv_p, const uint8_t* gate_p,
                                const float* kp_uv, const float* kp_desc, const uint8_t* kp_ok,
                                int* best_k, float* best_d, int P, int O, int D, int K,
                                float radius_sq, cudaStream_t stream) {
-  if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 32 * MAX_DPL || K < 0)
+  if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 || K < 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (P + WARPS - 1) / WARPS;
-  guided_match_kernel<<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid, kp_uv,
-                                                      kp_desc, kp_ok, best_k, best_d, P, O, D,
-                                                      K, radius_sq);
+  if (D <= 128)
+    guided_match_kernel<4><<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid,
+                                                           kp_uv, kp_desc, kp_ok, best_k, best_d,
+                                                           P, O, D, K, radius_sq);
+  else
+    guided_match_kernel<8><<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid,
+                                                           kp_uv, kp_desc, kp_ok, best_k, best_d,
+                                                           P, O, D, K, radius_sq);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,199 @@
+"""LightGlue-style attention matcher (port of racing_slam_tpu/models/lightglue.py).
+
+Tokens are projected descriptors of both images; each of the L layers runs
+rotary self-attention within an image and cross-attention between the
+images, each followed by a GELU MLP update of the tokens; a double-softmax
+assignment with per-token matchability scores the pairs, and `match` takes
+mutual argmaxes above a threshold.
+
+Every attention site goes through kernel K6 (`ops.kernels.attention`): the
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors. Weights keep
+the JAX package's [in, out] orientation (``x @ W``) and its pytree layout
+(`LightGlueParams`, `LayerParams`), so a JAX parameter tree converts leaf by
+leaf (`utils.convert.lightglue_params_from_numpy`).
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.kernels.attention import flash_mha
+from ..ops.matching import FrameMatches
+from . import WEIGHTS_DIR
+
+HEADS = 4
+
+
+class LayerParams(NamedTuple):
+    self_qkv_w: torch.Tensor  # [D, 3D]
+    self_out_w: torch.Tensor  # [D, D]
+    self_mlp_w: torch.Tensor  # [2D, D]
+    self_mlp_b: torch.Tensor  # [D]
+    cross_qk_w: torch.Tensor  # [D, D]
+    cross_v_w: torch.Tensor  # [D, D]
+    cross_mlp_w: torch.Tensor  # [2D, D]
+    cross_mlp_b: torch.Tensor  # [D]
+
+
+class LightGlueParams(NamedTuple):
+    in_proj_w: torch.Tensor  # [Din, D]
+    layers: tuple  # of LayerParams
+    match_proj_w: torch.Tensor  # [D, D]
+    matchability_w: torch.Tensor  # [D, 1]
+    matchability_b: torch.Tensor  # [1]
+
+
+def _rotary_2d(xy: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [K, dim/2] of the 2-D rotary angles of normalised coords
+    [K, 2]: dim/4 frequencies exp(linspace(0, 4)) * pi on x, the same on y."""
+    freqs = torch.exp(torch.linspace(0.0, 4.0, dim // 4, device=xy.device)) * math.pi
+    ang = torch.cat([xy[:, 0:1] * freqs[None, :], xy[:, 1:2] * freqs[None, :]], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the interleaved feature pairs (0::2, 1::2) of x [K, H, dh]."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c, s = cos[:, None, :], sin[:, None, :]
+    return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
+
+
+def _ln(x: torch.Tensor) -> torch.Tensor:
+    """Parameter-free LayerNorm (population variance, as jnp.var)."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + 1e-6)
+
+
+def _mha(q, k, v, mask_q, mask_k):
+    """Multi-head attention (kernel K6), masked query rows zeroed."""
+    msg = flash_mha(q, k, v, mask_k)
+    return torch.where(mask_q[:, None, None], msg, 0.0)
+
+
+def _split_heads(x: torch.Tensor) -> torch.Tensor:
+    K, D = x.shape
+    return x.reshape(K, HEADS, D // HEADS)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    K, H, dh = x.shape
+    return x.reshape(K, H * dh)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1):
+    """Rotary self-attention in each image, then cross-attention both ways;
+    each updates tokens by t + GELU([t_norm | LN(msg)] @ W + b)."""
+
+    def self_attn(t, cos, sin, m):
+        tn = _ln(t)
+        q, k, v = torch.chunk(tn @ p.self_qkv_w, 3, dim=-1)
+        q = _apply_rope(_split_heads(q), cos, sin)
+        k = _apply_rope(_split_heads(k), cos, sin)
+        msg = _merge_heads(_mha(q, k, _split_heads(v), m, m)) @ p.self_out_w
+        return t + _gelu(torch.cat([tn, _ln(msg)], dim=-1) @ p.self_mlp_w + p.self_mlp_b)
+
+    t0 = self_attn(t0, *rope0, m0)
+    t1 = self_attn(t1, *rope1, m1)
+
+    def cross(ta, tb, ma, mb):
+        tan, tbn = _ln(ta), _ln(tb)
+        qa = _split_heads(tan @ p.cross_qk_w)
+        kb = _split_heads(tbn @ p.cross_qk_w)
+        vb = _split_heads(tbn @ p.cross_v_w)
+        msg = _merge_heads(_mha(qa, kb, vb, ma, mb))
+        return ta + _gelu(torch.cat([tan, _ln(msg)], dim=-1) @ p.cross_mlp_w + p.cross_mlp_b)
+
+    return cross(t0, t1, m0, m1), cross(t1, t0, m1, m0)
+
+
+def _normalise(xy: torch.Tensor, image_size: tuple[float, float]) -> torch.Tensor:
+    w, h = image_size
+    s = max(w, h)
+    return torch.stack([(xy[:, 0] - w / 2) / s, (xy[:, 1] - h / 2) / s], dim=-1)
+
+
+def assignment_scores(
+    params: LightGlueParams,
+    desc0: torch.Tensor,
+    xy0: torch.Tensor,
+    valid0: torch.Tensor,
+    desc1: torch.Tensor,
+    xy1: torch.Tensor,
+    valid1: torch.Tensor,
+    image_size: tuple[float, float],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward pass -> (scores [K0, K1], matchability0 [K0], matchability1 [K1])."""
+    t0 = desc0 @ params.in_proj_w
+    t1 = desc1 @ params.in_proj_w
+    if params.layers:
+        dh = t0.shape[-1] // HEADS
+        rope0 = _rotary_2d(_normalise(xy0, image_size), dh)
+        rope1 = _rotary_2d(_normalise(xy1, image_size), dh)
+        for p in params.layers:
+            t0, t1 = _layer(p, t0, t1, rope0, rope1, valid0, valid1)
+        t0, t1 = _ln(t0), _ln(t1)
+    z0 = t0 @ params.match_proj_w
+    z1 = t1 @ params.match_proj_w
+    sim = (z0 @ z1.T) / math.sqrt(z0.shape[-1])
+    sim = torch.where(valid0[:, None] & valid1[None, :], sim, -1e9)
+    s01 = torch.log_softmax(sim, dim=1)
+    # The softmax over dim 0 as a row softmax of a contiguous transpose: on
+    # the card the strided dim-0 softmax of [2400, 2400] took longer than
+    # all 8 attention sites together.
+    s10 = torch.log_softmax(sim.T.contiguous(), dim=1).T
+    m0 = torch.sigmoid(t0 @ params.matchability_w + params.matchability_b)[:, 0]
+    m1 = torch.sigmoid(t1 @ params.matchability_w + params.matchability_b)[:, 0]
+    return torch.exp(s01 + s10) * m0[:, None] * m1[None, :], m0, m1
+
+
+def match(
+    params: LightGlueParams,
+    desc0: torch.Tensor,
+    xy0: torch.Tensor,
+    valid0: torch.Tensor,
+    desc1: torch.Tensor,
+    xy1: torch.Tensor,
+    valid1: torch.Tensor,
+    image_size: tuple[float, float],
+    threshold: float = 0.1,
+) -> FrameMatches:
+    """Mutual-argmax matches above `threshold`, indexed by image-1 keypoints
+    (train_idx -> image 0), like ops.matching.match_frames. Ties go to the
+    first index, as with jnp.argmax."""
+    scores, _, _ = assignment_scores(params, desc0, xy0, valid0, desc1, xy1, valid1, image_size)
+    best0_for_1 = torch.argmax(scores, dim=0)  # [K1]
+    best1_for_0 = torch.argmax(scores, dim=1)  # [K0]
+    cols = torch.arange(scores.shape[1], device=scores.device)
+    mutual = best1_for_0[best0_for_1] == cols
+    sc = scores[best0_for_1, cols]
+    return FrameMatches(train_idx=best0_for_1, distance=1.0 - sc,
+                        valid=mutual & (sc > threshold) & valid1)
+
+
+def default_weights(descriptor_dim: int) -> Path:
+    """The committed weight file for a descriptor space, as the JAX Slam
+    picks it: 128-d (classical) -> lightglue.npz, otherwise the jointly
+    trained lightglue_superpoint.npz (the 256-d SuperPoint path)."""
+    return WEIGHTS_DIR / ("lightglue.npz" if descriptor_dim == 128 else "lightglue_superpoint.npz")
+
+
+def load_params(path, device: str | torch.device = "cuda") -> LightGlueParams:
+    """Weights from a JAX-package .npz (leaves in pytree order plus in_dim,
+    dim and n_layers) onto `device`."""
+    from ..utils.convert import lightglue_params_from_numpy
+
+    with np.load(path) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(int(data["n_leaves"]))]
+        dims = int(data["in_dim"]), int(data["dim"]), int(data["n_layers"])
+    return lightglue_params_from_numpy(leaves, *dims, device=device)

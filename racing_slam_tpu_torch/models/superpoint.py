@@ -1,0 +1,218 @@
+"""SuperPoint-style keypoint detector and descriptor (port of
+racing_slam_tpu/models/superpoint.py).
+
+A VGG-style encoder (64-64-128-128, two 3x3 convs per stage, 2x2 max pool
+between stages) to 1/8 resolution; a detector head giving a 65-way (8x8
+cell + dustbin) distribution per cell and a descriptor head giving 256-d
+descriptors per cell, sampled bilinearly at the keypoints.
+
+Precision contract (the JAX package's inference path, superpoint.py:82-100
+and :267-279): conv operands in bf16, sums in float32, biases in float32;
+keypoint selection and normalisation in float32. Every convolution runs in
+float32 on bf16-rounded operands (cuDNN on the card, TF32 allowed: it holds
+bf16 values exactly), so each layer's output is float32 and rounds to bf16
+once, at the next layer's input, as in JAX. (A bf16 convolution would
+round its output to bf16 before the bias as well, and that double
+rounding moves keypoints by a pixel against JAX far more often.) The
+heads' final 1x1 convolutions are float32 matmuls of bf16-rounded
+operands. They are plain convolutions, computed outside any Pallas kernel
+in the JAX package too.
+
+Public functions keep the JAX layouts: images [H, W], features [Hc, Wc, C],
+heatmaps [H, W], descriptor maps [Hc, Wc, D]. Parameters keep the JAX
+pytree's fields, with convolution kernels in PyTorch's OIHW layout
+(`utils.convert.superpoint_params_from_numpy` converts from HWIO).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.image import bilinear_sample
+from ..slam.state import Features
+
+ENCODER_CHANNELS = (64, 64, 128, 128)
+CELL = 8  # detection cell (fixed by the 65-way head)
+
+
+class SuperPointParams(NamedTuple):
+    conv_w: tuple  # encoder kernels, OIHW
+    conv_b: tuple
+    det_w: tuple  # detector head: 3x3 then 1x1
+    det_b: tuple
+    desc_w: tuple  # descriptor head: 3x3 then 1x1
+    desc_b: tuple
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 tensor holding the bf16 rounding of `t`."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv of [1, C, H, W]: bf16-rounded operands, float32 sums
+    and bias, float32 output. A product of two bf16 values is exact in
+    TF32 as in float32, so cuDNN may take its TF32 tensor-core path here
+    (the package turns TF32 off everywhere else). The cuDNN switches are
+    process-wide: these are the port's only cuDNN convolutions, and its
+    frame-prefetch thread runs none."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        return F.conv2d(_bf16_round(x), _bf16_round(w), b, padding=1)
+
+
+def _conv1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1x1 conv of [1, C, Hc, Wc] -> [Hc, Wc, Cout] as a float32 matmul of
+    bf16-rounded operands (float32 output, as the JAX conv)."""
+    xt = _bf16_round(x[0]).permute(1, 2, 0)  # [Hc, Wc, C]
+    return xt @ _bf16_round(w[:, :, 0, 0]).T + b
+
+
+def backbone(params: SuperPointParams, img: torch.Tensor) -> torch.Tensor:
+    """[H, W] grayscale -> [H/8, W/8, 128] features."""
+    x = img[None, None].to(torch.float32)
+    i = 0
+    for stage in range(len(ENCODER_CHANNELS)):
+        for _ in range(2):
+            x = torch.relu(_conv3(x, params.conv_w[i], params.conv_b[i]))
+            i += 1
+        if stage < len(ENCODER_CHANNELS) - 1:
+            x = F.max_pool2d(x, 2)  # floors odd sizes, as the JAX reshape pool
+    return x[0].permute(1, 2, 0)
+
+
+def heads_logits(params: SuperPointParams, feat: torch.Tensor):
+    """[Hc, Wc, C] features -> (detector logits [Hc, Wc, 65], unit-norm dense
+    descriptors [Hc, Wc, D]), both float32."""
+    x = feat.permute(2, 0, 1)[None]
+    d = torch.relu(_conv3(x, params.det_w[0], params.det_b[0]))
+    logits = _conv1(d, params.det_w[1], params.det_b[1])
+    e = torch.relu(_conv3(x, params.desc_w[0], params.desc_b[0]))
+    desc = _conv1(e, params.desc_w[1], params.desc_b[1])
+    return logits, desc / (torch.linalg.norm(desc, dim=-1, keepdim=True) + 1e-8)
+
+
+def heads(params: SuperPointParams, feat: torch.Tensor):
+    """-> (heatmap [H, W], dense descriptors [Hc, Wc, D])."""
+    logits, desc = heads_logits(params, feat)
+    prob = torch.softmax(logits, dim=-1)[..., :64]  # drop the dustbin
+    heat = F.pixel_shuffle(prob.permute(2, 0, 1)[None], CELL)[0, 0]
+    return heat, desc
+
+
+def select_keypoints(
+    heat: torch.Tensor,
+    mask: torch.Tensor | None,
+    cell: int,
+    n_per_cell: int,
+    threshold: float,
+    border: int = 4,
+):
+    """Grid-cell argmax selection on the heatmap (static K), then a
+    parabola sub-pixel fit. Returns (xy [K, 2], score [K], valid [K])."""
+    H, W = heat.shape
+    dev = heat.device
+    score = heat
+    if mask is not None:
+        score = torch.where(mask > 0, score, 0.0)
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    inb = (ys >= border) & (ys < H - border) & (xs >= border) & (xs < W - border)
+    score = torch.where(inb, score, 0.0)
+
+    gh, gw = -(-H // cell), -(-W // cell)
+    padded = F.pad(score, (0, gw * cell - W, 0, gh * cell - H))
+    cells = padded.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
+    rows = torch.arange(gh * gw, device=dev)
+    bests, scores = [], []
+    for _ in range(n_per_cell):
+        b = torch.argmax(cells, dim=-1)
+        bests.append(b)
+        scores.append(cells[rows, b])
+        cells = cells.index_put((rows, b), torch.zeros((), device=dev))
+    best = torch.cat(bests)
+    sc = torch.cat(scores)
+    cell_ids = rows.repeat(n_per_cell)
+    cy = (cell_ids // gw) * cell + best // cell
+    cx = (cell_ids % gw) * cell + best % cell
+
+    cyc = torch.clamp(cy, 1, H - 2)
+    cxc = torch.clamp(cx, 1, W - 2)
+
+    def s(dy, dx):
+        return heat[cyc + dy, cxc + dx]
+
+    denom_x = s(0, -1) - 2.0 * s(0, 0) + s(0, 1)
+    denom_y = s(-1, 0) - 2.0 * s(0, 0) + s(1, 0)
+    dx = torch.where(torch.abs(denom_x) > 1e-12, 0.5 * (s(0, -1) - s(0, 1)) / denom_x, 0.0)
+    dy = torch.where(torch.abs(denom_y) > 1e-12, 0.5 * (s(-1, 0) - s(1, 0)) / denom_y, 0.0)
+    dx = torch.clamp(dx, -0.5, 0.5)
+    dy = torch.clamp(dy, -0.5, 0.5)
+    xy = torch.stack([cxc.to(torch.float32) + dx, cyc.to(torch.float32) + dy], dim=-1)
+    return xy, sc, sc > threshold
+
+
+def sample_descriptors(desc_map: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear descriptor sampling at pixel coords: [Hc, Wc, D], [K, 2] -> [K, D]."""
+    out = bilinear_sample(desc_map, xy / CELL - 0.5)
+    return out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-8)
+
+
+class SuperPointFrontend:
+    """Learned frontend behind the same interface as ClassicalFrontend.
+
+    `params` (from `load_params`) are placed on `device`, the card unless
+    the caller asks for the CPU; the convolution kernels are kept in bf16
+    (their inference rounding) so that a frame converts each only once.
+    max_distance is the reference deep path's L2 gate (0.7)."""
+
+    def __init__(
+        self,
+        params: SuperPointParams,
+        cell: int = 16,
+        n_per_cell: int = 2,
+        threshold: float = 0.0005,
+        max_distance: float = 0.7,
+        device: str | torch.device = "cuda",
+    ):
+        from ..slam.frontend import ClassicalMatcher
+
+        self.device = resolve_device(device)
+        self.params = SuperPointParams(*[
+            tuple(w.to(self.device, torch.bfloat16) if w.dim() == 4 else w.to(self.device)
+                  for w in group)
+            for group in params
+        ])
+        self.descriptor_dim = params.desc_w[1].shape[0]
+        self.cell = cell
+        self.n_per_cell = n_per_cell
+        self.threshold = threshold
+        self.max_distance = max_distance
+        # Frame<->frame matcher slot; Slam puts a LightGlueMatcher here when
+        # cfg.matcher == "lightglue".
+        self.matcher = ClassicalMatcher(max_distance)
+
+    def num_keypoints(self, height: int, width: int) -> int:
+        return self.n_per_cell * (-(-height // self.cell)) * (-(-width // self.cell))
+
+    def extract(self, img: torch.Tensor, mask: torch.Tensor | None = None) -> Features:
+        """Features of one float32 [H, W] frame; `mask` [H, W], nonzero = allowed."""
+        heat, desc_map = heads(self.params, backbone(self.params, img))
+        xy, score, valid = select_keypoints(heat, mask, self.cell, self.n_per_cell,
+                                            self.threshold)
+        return Features(xy=xy, desc=sample_descriptors(desc_map, xy), valid=valid, score=score)
+
+
+def load_params(path, device: str | torch.device = "cuda") -> SuperPointParams:
+    """Weights from a JAX-package .npz (24 leaves in pytree order) onto `device`."""
+    from ..utils.convert import superpoint_params_from_numpy
+
+    with np.load(path) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    return superpoint_params_from_numpy(leaves, device=device)

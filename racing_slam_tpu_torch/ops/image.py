@@ -83,8 +83,11 @@ def max_pool_same(img: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Sample [H, W] image at continuous (x, y) [..., 2]; coords clamped."""
-    H, W = img.shape
+    """Sample an [H, W] image at continuous (x, y) [..., 2]; coords clamped.
+
+    An [H, W, C] image samples every channel at once ([..., C] out), with
+    the same arithmetic per channel as the [H, W] case."""
+    H, W = img.shape[:2]
     x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
     x0 = torch.floor(x)
@@ -95,7 +98,10 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     y0i = y0.long()
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    flat = img.reshape(-1)
+    flat = img.reshape(H * W, *img.shape[2:])
+    extra = (1,) * (img.dim() - 2)
+    fx = fx.reshape(fx.shape + extra)
+    fy = fy.reshape(fy.shape + extra)
 
     def g(yy, xx):
         return flat[yy * W + xx]

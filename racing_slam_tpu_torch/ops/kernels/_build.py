@@ -44,6 +44,8 @@ SIGNATURES = {
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,
     # out, points_out, scratch, F, P, O, fx, cx, cy, lam0, huber, ftol, iters, stream
     "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
+    # q, k, v, mask_k, out, Kq, Kk, H, dh, scale, stream
+    "slam_flash_mha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

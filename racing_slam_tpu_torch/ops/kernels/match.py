@@ -10,9 +10,10 @@ descriptors; bf16-rounded descriptors, float32 sums, ties to the lowest
 keypoint index, (0, 1e9) where nothing passes.
 
 What bounds it on an H100: evaluated densely, as the TPU kernel does on its
-matrix unit, it is P*O*K*D = 4096*8*2400*128 multiply-adds (~20 GFLOP)
-per call, twice a frame, for a result that keeps about 20 keypoints per
-point: the pixel gate rejects ~99% of pairs at radius 28 px on 640x480.
+matrix unit, it is P*O*K*D = 4096*8*2400*128 multiply-adds (~20 GFLOP;
+twice that for the learned path's 256-d descriptors) per call, twice a
+frame, for a result that keeps about 20 keypoints per point: the pixel
+gate rejects ~99% of pairs at radius 28 px on 640x480.
 The kernel tests the cheap pixel gate first, one warp per point over
 keypoint tiles in shared memory, and computes descriptor distances only for
 the pairs that pass, so it is bound by the gate scan (P*K position tests)
@@ -84,8 +85,9 @@ def guided_match_stage1(
     K = kp_uv.shape[0]
     obs_desc = obs_desc.to(torch.bfloat16)  # no-op for the state's bf16 cache
     kp_desc = kp_desc.to(torch.float32)  # rounded to bf16 inside the kernel
-    if O > 8 or D % 32 != 0 or D > 128:
-        raise ValueError(f"guided_match_stage1 kernel takes O <= 8, D in 32..128; got {O}, {D}")
+    if O > 8 or D % 32 != 0 or D > 256:
+        raise ValueError(f"guided_match_stage1 kernel takes O <= 8, D in 32..256 in steps of 32; "
+                         f"got {O}, {D}")
     _build.expect(uv_p, "uv_p", torch.float32, (P, 2))
     _build.expect(gate_p, "gate_p", torch.bool, (P,))
     _build.expect(obs_desc, "obs_desc", torch.bfloat16, (P, O, D))

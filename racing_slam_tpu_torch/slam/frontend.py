@@ -1,15 +1,20 @@
-"""Classical feature frontend (port of racing_slam_tpu/slam/frontend.py).
+"""Feature frontends and frame matchers (port of racing_slam_tpu/slam/frontend.py).
 
 ``ClassicalFrontend.extract(img, mask) -> Features`` runs kernel K1 (the
 image stack) for a CUDA frame and its plain twin for a CPU frame, then the
-grid-corner selection and the patch descriptors in plain PyTorch.
-``ClassicalMatcher`` is the mutual-1NN frame matcher.
+grid-corner selection and the patch descriptors in plain PyTorch. The
+learned frontend, ``models.superpoint.SuperPointFrontend``, has the same
+interface. A frontend's ``matcher`` slot holds the frame<->frame matcher:
+``ClassicalMatcher`` (mutual 1-NN) or ``LightGlueMatcher`` (attention,
+kernel K6), which Slam puts there for ``SlamConfig.matcher="lightglue"``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
+from ..models import lightglue
 from ..ops.corners import select_corners_from_maps
 from ..ops.descriptors import DESCRIPTOR_DIM, MAX_DISTANCE, extract_descriptors_cells
 from ..ops.kernels.frontend import corner_frontend_fused
@@ -25,6 +30,26 @@ class ClassicalMatcher:
 
     def __call__(self, desc0, xy0, valid0, desc1, xy1, valid1):
         return match_frames(desc0, valid0, desc1, valid1, self.max_distance)
+
+
+class LightGlueMatcher:
+    """The LightGlue attention matcher behind the frame-matching interface;
+    it uses the keypoint coordinates for its rotary position encoding.
+    `params` come from `models.lightglue.load_params` and must lie on
+    `device`, the card unless the caller asks for the CPU."""
+
+    def __init__(self, params: lightglue.LightGlueParams, image_size: tuple[float, float],
+                 threshold: float = 0.35, device="cuda"):
+        dev = resolve_device(device)
+        if params.in_proj_w.device.type != dev.type:
+            raise ValueError(f"LightGlue weights on {params.in_proj_w.device}, matcher on {dev}")
+        self.params = params
+        self.image_size = image_size
+        self.threshold = threshold
+
+    def __call__(self, desc0, xy0, valid0, desc1, xy1, valid1):
+        return lightglue.match(self.params, desc0, xy0, valid0, desc1, xy1, valid1,
+                               self.image_size, self.threshold)
 
 
 class ClassicalFrontend:

@@ -22,7 +22,12 @@ decides per site:
 - the reprojection monitor: a host branch on the same is_kf read, or a
   masked update when it runs every N frames.
 
-The slice covers the reference commit shape (`local_ba_window=1`) without
+The frame<->frame matcher at the commit's triangulation and in the
+bootstrap is `frontend.matcher`: mutual 1-NN, or LightGlue (kernel K6 at
+every attention site) with `SlamConfig.matcher="lightglue"`. The frontend
+is the classical one (kernel K1) or `models.superpoint.SuperPointFrontend`.
+
+The port covers the reference commit shape (`local_ba_window=1`) without
 periodic refinement; the configuration values of later slices raise
 NotImplementedError when the driver is built.
 """
@@ -35,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..models import lightglue
 from ..ops import se3
 from ..ops.ba import HUBER_DELTA, BAProblem, motion_ba, structure_ba
 from ..ops.camera import Camera, project_with_depth
@@ -43,7 +50,7 @@ from ..ops.matching import match_map_to_frame, unmatched_mask
 from ..ops.ransac import estimate_relative_pose
 from ..ops.triangulation import triangulate_points
 from .config import SlamConfig
-from .frontend import ClassicalFrontend
+from .frontend import ClassicalFrontend, LightGlueMatcher
 from .state import (
     I64,
     Features,
@@ -83,12 +90,10 @@ _LATER = {
     "pose_prediction": "slice 3 (adaptive / essential-matrix prediction)",
     "essential_matrix_estimation": "slice 3 (adaptive / essential-matrix prediction)",
     "matching_backend": "slice 4 (banded matcher + kernel K5)",
-    "matcher": "slice 5 (learned path + kernel K6)",
-    "frontend": "slice 5 (learned path + kernel K6)",
 }
 
 
-def check_slice_config(cfg: SlamConfig, frontend=None) -> None:
+def check_slice_config(cfg: SlamConfig) -> None:
     """Raise NotImplementedError for every configuration value outside the
     ported slice, naming the slice of ROADMAP.md that brings it.
 
@@ -112,10 +117,6 @@ def check_slice_config(cfg: SlamConfig, frontend=None) -> None:
         bad.append(("essential_matrix_estimation", True))
     if cfg.matching_backend == "banded":
         bad.append(("matching_backend", cfg.matching_backend))
-    if cfg.matcher == "lightglue":
-        bad.append(("matcher", cfg.matcher))
-    if frontend is not None and not isinstance(frontend, ClassicalFrontend):
-        bad.append(("frontend", type(frontend).__name__))
     if bad:
         raise NotImplementedError(
             "not ported yet: "
@@ -276,7 +277,7 @@ def slam_step(
     *,
     cam: Camera,
     cfg: SlamConfig,
-    frontend: ClassicalFrontend,
+    frontend,
 ) -> tuple[SlamState, StepInfo]:
     """One tracking step. `img` is an [H, W] uint8 or float32 frame on the
     state's device. Makes exactly one host read (is_kf + inlier count)."""
@@ -500,7 +501,8 @@ def commit_initialization(
 class Slam:
     """Host orchestrator: owns the device state, decodes and uploads frames,
     drives the steps. Same public surface as the JAX package's Slam, plus
-    the `device` the state lives on."""
+    the `device` the state lives on: the card unless the caller passes
+    device="cpu" (without a card, the default raises)."""
 
     def __init__(
         self,
@@ -510,17 +512,22 @@ class Slam:
         static_mask: np.ndarray | None = None,
         seed: int = 0,
         frontend=None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
-        check_slice_config(config, frontend)
+        check_slice_config(config)
         self.cam = cam
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.video = iter(video)
         self.frontend = frontend if frontend is not None else ClassicalFrontend(
             cell=config.cell, n_per_cell=config.n_per_cell,
             max_distance=config.max_match_distance,
         )
+        fdev = getattr(self.frontend, "device", self.device)
+        if fdev.type != self.device.type:
+            raise ValueError(f"the frontend's weights are on {fdev}, the Slam on {self.device}")
+        if config.matcher == "lightglue":
+            self.frontend.matcher = self._lightglue_matcher()
         self._mask = None if static_mask is None else torch.from_numpy(
             (np.asarray(static_mask) > 0).astype(np.float32)).to(self.device)
         self._seed = seed
@@ -543,6 +550,23 @@ class Slam:
         # its steps: one per tracking frame, one per bootstrap attempt.
         self.host_syncs = {"track": 0, "bootstrap": 0}
         self.frames_tracked = 0
+
+    def _lightglue_matcher(self) -> LightGlueMatcher:
+        """LightGlue on the weights for the frontend's descriptor space:
+        `lightglue_weights`, or the committed file picked by the descriptor
+        dimension (JAX Slam, pipeline.py:870-904)."""
+        dim = self.frontend.descriptor_dim
+        wpath = self.cfg.lightglue_weights or str(lightglue.default_weights(dim))
+        params = lightglue.load_params(wpath, device=self.device)
+        in_dim = params.in_proj_w.shape[0]
+        if in_dim != dim:
+            raise ValueError(
+                f"LightGlue weights at {wpath} take {in_dim}-d descriptors but the "
+                f"{type(self.frontend).__name__} produces {dim}-d ones; pass matching "
+                "weights via lightglue_weights"
+            )
+        return LightGlueMatcher(params, image_size=(float(self.cam.width), float(self.cam.height)),
+                                threshold=self.cfg.lightglue_threshold, device=self.device)
 
     # -- frame source -------------------------------------------------------
     def _to_u8(self, img) -> np.ndarray:

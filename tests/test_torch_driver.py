@@ -25,7 +25,7 @@ def _cam():
 
 
 def _run(frames, cfg, batched):
-    slam = Slam(_cam(), ArraySource(frames), cfg)
+    slam = Slam(_cam(), ArraySource(frames), cfg, device="cpu")
     assert slam.initialize()
     slam.run_batched(batch=4) if batched else slam.run()
     return slam
@@ -94,7 +94,7 @@ def test_initialization_rejects_static_start():
     moving = make_sequence(np.random.default_rng(3), n_frames=10, cam=_cam(), n_sprites=100,
                            step_t=np.array([0.12, 0.0, 0.15], np.float32))
     slam = Slam(_cam(), ArraySource([static.frames[0]] * 4 + moving.frames),
-                SlamConfig(max_keyframes=8, map_capacity=1024))
+                SlamConfig(max_keyframes=8, map_capacity=1024), device="cpu")
     assert slam.initialize()
     assert slam.keyframe_indices()[1] >= 4
 

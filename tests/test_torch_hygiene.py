@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from racing_slam_tpu_torch.ops.kernels import _build
+from racing_slam_tpu_torch.ops.kernels import attention as k6
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
@@ -34,7 +35,9 @@ SLICE_MODULES = [
     "racing_slam_tpu_torch.ops.ransac", "racing_slam_tpu_torch.ops.kernels._build",
     "racing_slam_tpu_torch.ops.kernels.frontend", "racing_slam_tpu_torch.ops.kernels.match",
     "racing_slam_tpu_torch.ops.kernels.motion_ba",
-    "racing_slam_tpu_torch.ops.kernels.structure_ba", "racing_slam_tpu_torch.slam.config",
+    "racing_slam_tpu_torch.ops.kernels.structure_ba", "racing_slam_tpu_torch.ops.kernels.attention",
+    "racing_slam_tpu_torch.models", "racing_slam_tpu_torch.models.lightglue",
+    "racing_slam_tpu_torch.models.superpoint", "racing_slam_tpu_torch.slam.config",
     "racing_slam_tpu_torch.slam.state", "racing_slam_tpu_torch.slam.frontend",
     "racing_slam_tpu_torch.slam.pipeline", "racing_slam_tpu_torch.utils.synthetic",
     "racing_slam_tpu_torch.utils.convert", "racing_slam_tpu_torch.utils.metrics",
@@ -81,6 +84,9 @@ CASES = {
                     _meta((128, 8, 2)), _meta((128, 8), torch.bool), _meta((128,), torch.bool),
                     _meta((), torch.int64)),
            dict(fx=480.0, cx=320.0, cy=240.0, max_iters=10, huber_delta=0.005)),
+    "K6": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha",
+           lambda: (_meta((64, 4, 32)), _meta((96, 4, 32)), _meta((96, 4, 32)),
+                    _meta((96,), torch.bool)), {}),
 }
 
 

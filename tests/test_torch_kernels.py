@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain twins on a CUDA card, at small
+"""The CUDA kernels against their plain twins on a CUDA card, at small
 and ragged shapes (the main-path shapes are chip_smoke.py's).
 
 These need a card: each test takes the `cuda` fixture, which skips without
@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from racing_slam_tpu_torch.ops.kernels import attention as k6
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
@@ -55,7 +56,8 @@ def test_k1_kernel_matches_twin(cuda, shape, masked):
     np.testing.assert_allclose(got[1][both], want[1][both], atol=2e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("O,D,K", [(3, 32, 100), (8, 128, 700), (5, 64, 257)])
+@pytest.mark.parametrize("O,D,K", [(3, 32, 100), (8, 128, 700), (5, 64, 257), (8, 256, 700),
+                                   (4, 224, 300)])
 def test_k2_kernel_matches_twin(cuda, O, D, K):
     rng = np.random.default_rng(2)
     P = 300
@@ -144,3 +146,22 @@ def test_k4_kernel_matches_twin(cuda, frozen):
     assert abs(out[6] - ref[6]) <= 0.01 * ref[6] + 1e-10, (out[6], ref[6])
     assert np.median(np.linalg.norm(pts - rpts, axis=-1)) < 1e-4
     np.testing.assert_array_equal(pts[:frozen], args[2].cpu().numpy()[:frozen])
+
+
+@pytest.mark.parametrize("Kq,Kk,dh,valid", [(2400, 2400, 32, 0.8), (300, 2333, 32, 0.8),
+                                            (100, 333, 32, 0.0), (77, 130, 16, 0.5),
+                                            (200, 200, 64, 1.0)])
+def test_k6_kernel_matches_twin(cuda, Kq, Kk, dh, valid):
+    """Tolerance 5 % of the twin's output RMS (chip_smoke.py
+    check_attention; about 1.9e-3 at [2400, 2400], 9e-3 at 130 keys): the
+    kernel's 64-key tiles round p to bf16 against another running max than
+    the twin's 512-key tiles."""
+    rng = np.random.default_rng(6)
+    H = 4
+    q, k, v = [torch.from_numpy(rng.normal(size=(n, H, dh)).astype(np.float32)).to(cuda)
+               for n in (Kq, Kk, Kk)]
+    mask = torch.from_numpy(rng.random(Kk) < valid).to(cuda)
+    got = k6.flash_mha(q, k, v, mask).cpu().numpy()
+    want = k6.flash_mha_reference(q, k, v, mask).cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=0.05 * np.sqrt(np.mean(want**2)), rtol=0)

@@ -11,7 +11,8 @@ synthetic sequence (320x240, 16 frames).
 (b) The slice as a whole: Slam.initialize() + run_batched() tracks with
     ATE < 8 % of the trajectory length and >= 4 keyframes, the bound of
     tests/test_pipeline.py:58-61.
-(c) Configuration values of later slices raise NotImplementedError.
+(c) Configuration values of later slices raise NotImplementedError, and
+    Slam without a card raises unless given device="cpu".
 """
 
 import dataclasses
@@ -143,7 +144,7 @@ def test_slice_tracks_the_sequence(seq, prediction):
     cfg = SlamConfig(triangulate_points=True, bundle_adjust=True, optimize_pose=True,
                      cull_points=True, max_keyframes=16, map_capacity=2048,
                      pose_prediction=prediction)
-    slam = tp.Slam(seq.cam, ArraySource(seq.frames), cfg)
+    slam = tp.Slam(seq.cam, ArraySource(seq.frames), cfg, device="cpu")
     assert slam.initialize()
     n = slam.run_batched(batch=8)
     ate, length, kf = _ate(slam, seq)
@@ -154,10 +155,10 @@ def test_slice_tracks_the_sequence(seq, prediction):
 
 
 def test_run_batched_matches_per_frame_stepping(seq):
-    a = tp.Slam(seq.cam, ArraySource(seq.frames), CFG)
+    a = tp.Slam(seq.cam, ArraySource(seq.frames), CFG, device="cpu")
     assert a.initialize()
     a.run()
-    b = tp.Slam(seq.cam, ArraySource(seq.frames), CFG)
+    b = tp.Slam(seq.cam, ArraySource(seq.frames), CFG, device="cpu")
     assert b.initialize()
     b.run_batched(batch=5)
     np.testing.assert_array_equal(a.keyframe_indices(True), b.keyframe_indices(True))
@@ -166,17 +167,23 @@ def test_run_batched_matches_per_frame_stepping(seq):
 
 
 @pytest.mark.parametrize("override", [
-    dict(local_ba_window=4), dict(refine_every_frames=48), dict(matcher="lightglue"),
+    dict(local_ba_window=4), dict(refine_every_frames=48),
     dict(matching_backend="banded"), dict(pose_prediction="adaptive"),
-    dict(essential_matrix_estimation=True), "learned_frontend",
+    dict(essential_matrix_estimation=True),
 ])
 def test_out_of_slice_config_raises(seq, override):
-    if override == "learned_frontend":
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            tp.Slam(seq.cam, [], SlamConfig(), frontend=object())
-        return
     with pytest.raises(NotImplementedError, match="slice"):
         tp.Slam(seq.cam, [], SlamConfig(**override))
+
+
+def test_slam_without_a_card_raises(seq):
+    """The card is the default device: without one, Slam refuses to start
+    unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tp.Slam(seq.cam, [], SlamConfig())
+    assert tp.Slam(seq.cam, [], SlamConfig(), device="cpu").state.map.pos.device.type == "cpu"
 
 
 @pytest.mark.parametrize("override", [
