@@ -6,22 +6,31 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      no CUDA device is a failure, there is no CPU fallback;
-  2. build the five CUDA kernels from racing_slam_tpu_torch/csrc;
+  2. build the six CUDA kernels from racing_slam_tpu_torch/csrc (one nvcc
+     process per source, all started together);
   3. each kernel against its plain-PyTorch twin on the card, at the shapes
      of the main paths (640x480 frame; P=4096 map points x O=8
-     observations x K=2400 keypoints at D=128 and D=256; commit BA over
-     2432 points and 32 cameras; attention at [2400, 4, 32]), with
+     observations x K=2400 keypoints at D=128 and D=256; the banded search
+     at P=16384 (8192 sorted rows, 2560 padded keypoints), with a case
+     whose band does not fit; commit BA over 2432 points and 32 cameras;
+     attention at [2400, 4, 32]), with
      CUDA-event times (median of 25 runs after warm-up), the least time
      the card could take for the same work (bound_ms) and, for attention,
      one PyTorch call computing the same function (library_ms);
      SuperPoint on the card against the same network on the CPU;
-  4. three paths over the 304-frame bench world of seed 3 (640x480), each
-     Slam.initialize() + run_batched(batch=48) with the launch counters
-     set to 0 just before and read just after: the classical slice
-     (kernels K1-K4), the learned path (SuperPoint + LightGlue, K2-K4 and
-     K6) and the `lightglue` variant (classical frontend + LightGlue, K1-K4
-     and K6). Each is held to ATE <= 10 % and coverage >= 0.85 and one host
-     read per tracked frame, and every kernel of the path must have run.
+  4. five paths, each Slam.initialize() + run_batched(batch=48) with the
+     launch counters set to 0 just before and read just after. On the
+     304-frame bench world of seed 3 (640x480), with local_ba_window=1 and
+     no refinement: the classical slice (kernels K1-K4), the learned path
+     (SuperPoint + LightGlue, K2-K4 and K6) and the `lightglue` variant
+     (classical frontend + LightGlue, K1-K4 and K6); at bench.py's headline
+     configuration (local_ba_window=4, refine_every_frames=48), `headline`
+     (K1-K3, window BA and refinement). On the 150-frame world of seed 3
+     (bench.py --frames 150), `scale`: bench.py --map-capacity 16384
+     --match-backend banded (K1, K3, K5, with K2 as the device-side dense
+     fallback). Each is held to ATE <= 10 % and coverage >= 0.85 and one
+     host read per tracked frame, and every kernel of the path must have
+     run; `scale` prints how often the band did not fit.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -45,6 +54,7 @@ import numpy as np
 
 SEED = 3
 N_FRAMES = 304
+SCALE_FRAMES = 150  # bench.py --frames 150, the scale rows' world
 BATCH = 48
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet), and the
@@ -146,6 +156,28 @@ def check_frontend(frame: np.ndarray, dev) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/frontend_kernel.py:167")
 
 
+def _k2_data(rng, P: int, D: int, gate_rate: float):
+    """check_match's synthetic frame: K=2400 keypoints over 640x480, P map
+    points near random keypoints with O=8 noisy observations, planted exact
+    ties (keypoint 2i+1 duplicates 2i, 1 px away, for i < 200)."""
+    O, K = 8, 2400
+    kp_uv = np.stack([rng.uniform(0, 640, K), rng.uniform(0, 480, K)], -1).astype(np.float32)
+    kp_desc = rng.standard_normal((K, D)).astype(np.float32)
+    kp_desc /= np.linalg.norm(kp_desc, axis=-1, keepdims=True)
+    src = rng.integers(0, K, P)
+    uv_p = (kp_uv[src] + rng.uniform(-6, 6, (P, 2))).astype(np.float32)
+    obs = kp_desc[src][:, None, :] + 0.15 * rng.standard_normal((P, O, D)).astype(np.float32)
+    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
+    obs_valid = rng.uniform(size=(P, O)) < 0.7
+    gate = rng.uniform(size=P) < gate_rate
+    kp_ok = rng.uniform(size=K) < 0.95
+    for i in range(0, 200, 2):
+        kp_desc[i + 1] = kp_desc[i]
+        kp_uv[i + 1] = kp_uv[i] + 1.0
+        kp_ok[i] = kp_ok[i + 1] = True
+    return uv_p, gate, obs, obs_valid, kp_uv, kp_desc, kp_ok
+
+
 def check_match(dev, D: int = 128) -> dict:
     """K2 at P=4096, O=8, K=2400 on a 640x480 frame, radius 28 px, with
     planted exact ties (duplicate keypoints within the radius); D=128 for
@@ -161,23 +193,9 @@ def check_match(dev, D: int = 128) -> dict:
 
     from racing_slam_tpu_torch.ops.kernels import match as k
 
-    rng = np.random.default_rng(7)
-    P, O, K = 4096, 8, 2400
-    kp_uv = np.stack([rng.uniform(0, 640, K), rng.uniform(0, 480, K)], -1).astype(np.float32)
-    kp_desc = rng.standard_normal((K, D)).astype(np.float32)
-    kp_desc /= np.linalg.norm(kp_desc, axis=-1, keepdims=True)
-    src = rng.integers(0, K, P)
-    uv_p = (kp_uv[src] + rng.uniform(-6, 6, (P, 2))).astype(np.float32)
-    obs = kp_desc[src][:, None, :] + 0.15 * rng.standard_normal((P, O, D)).astype(np.float32)
-    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
-    obs_valid = rng.uniform(size=(P, O)) < 0.7
-    gate = rng.uniform(size=P) < 0.6
-    kp_ok = rng.uniform(size=K) < 0.95
-    # Planted ties: keypoint 2*i+1 duplicates 2*i (position 1 px away).
-    for i in range(0, 200, 2):
-        kp_desc[i + 1] = kp_desc[i]
-        kp_uv[i + 1] = kp_uv[i] + 1.0
-        kp_ok[i] = kp_ok[i + 1] = True
+    P, K = 4096, 2400
+    uv_p, gate, obs, obs_valid, kp_uv, kp_desc, kp_ok = _k2_data(np.random.default_rng(7), P, D,
+                                                                 gate_rate=0.6)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     args = (t(uv_p), t(gate), t(obs).to(torch.bfloat16), t(obs_valid), t(kp_uv), t(kp_desc),
             t(kp_ok))
@@ -209,6 +227,96 @@ def check_match(dev, D: int = 128) -> dict:
                 **bound(nbytes(*args) + P * 8, {"f32": 5 * P * K, "bf16": 2 * D * dots}),
                 source="racing_slam_tpu_torch/csrc/match_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/match_kernel.py:115")
+
+
+def check_match_banded(dev) -> dict:
+    """K5 at the scale path's shape: check_match's data grown to P=16384
+    map points, about 2000 of them gated (the gated count of a large map's
+    view), sorted and banded by the port's own planning
+    (ops/matching.py band_plan): 8192 sorted rows x O=8 x D=128 bf16, 2560
+    padded keypoints, 32 point tiles, radius 28 px.
+
+    Tolerances as check_match's (the same sums in another order): best_d
+    agrees everywhere to 1e-5, best_k where best_d < 1e9 on >= 99.9 % of
+    the points, and a planted tie goes to the lower sorted index. Then the
+    whole banded stage 1 on data whose gated points overflow the 8192
+    sorted rows (60 % of 16384 gated): it must report the fallback, K5 must
+    do no work and K2's answer must match its twin's.
+
+    Bound: a pixel-gate test (~5 float32 operations) for each of the
+    n_act * 256 x 1024 (point, band keypoint) pairs, 2D bf16 operations per
+    passing pair and valid observation, against the bytes of the active
+    rows, the keypoints, starts and the [8192] outputs. No library call
+    computes a gated argmin."""
+    import torch
+
+    from racing_slam_tpu_torch.ops import matching
+    from racing_slam_tpu_torch.ops.kernels import match as k2
+    from racing_slam_tpu_torch.ops.kernels import match_banded as k
+
+    P, D, r = 16384, 128, 28.0
+    tiles = dict(radius_px=r, tile_p=256, tile_k=512, band_tiles=2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    data = _k2_data(np.random.default_rng(17), P, D, gate_rate=2000 / P)
+    args = [t(a) for a in data]
+    args[2] = args[2].to(torch.bfloat16)
+    plan = matching.band_plan(*args, **tiles)
+    n_act = plan.n_act.to(torch.int32)
+    kargs = (*plan.k5_args, n_act)
+    bk, bd = k.guided_match_stage1_banded(*kargs, **tiles)
+    rk, rd = k.guided_match_stage1_banded_reference(*kargs, **tiles)
+    torch.cuda.synchronize()
+    bk, bd, rk, rd = [x.cpu().numpy() for x in (bk, bd, rk, rd)]
+    err = float(np.abs(bd - rd).max())
+    assert err <= 1e-5, f"K5 distance error {err}"
+    hit = rd < 1e9
+    agree = float((bk[hit] == rk[hit]).mean())
+    assert agree >= 0.999, f"K5 keypoint agreement {agree}"
+    order = plan.kp_order.cpu().numpy()
+    pos = np.empty(len(order), np.int64)
+    pos[order[: len(data[4])]] = np.arange(len(data[4]))  # original -> sorted index
+    lower = np.minimum(pos[0:200:2], pos[1:200:2])
+    ties = np.isin(rk, lower) & hit
+    assert ties.sum() > 0 and (bk[ties] == rk[ties]).all(), "K5 planted tie not to the lower index"
+    n_act_h, fits = int(plan.n_act), bool(plan.fits)
+    log(f"K5 banded match: {hit.sum()} of {int(data[1].sum())} gated points matched, "
+        f"{n_act_h} active tiles, band fits {fits}, keypoint agreement {agree:.5f}, "
+        f"|d2| err {err:.3e}, planted ties {int(ties.sum())}")
+
+    # The band does not fit: 60 % of the map gated overflows the 8192 rows.
+    over = [t(a) for a in _k2_data(np.random.default_rng(18), P, D, gate_rate=0.6)]
+    over[2] = over[2].to(torch.bfloat16)
+    before = k.launches
+    fk, fd, fell_back = matching._banded_stage1(*over, radius_px=r)
+    dk, dd = k2.guided_match_stage1_reference(*over, radius_px=r)
+    assert bool(fell_back), "K5 no-fit case did not fall back"
+    assert k.launches == before + (dev.type == "cuda"), "K5 not launched in the no-fit case"
+    fk, fd, dk, dd = [x.cpu().numpy() for x in (fk, fd, dk, dd)]
+    fhit = dd < 1e9
+    assert np.array_equal(fd >= 1e9, ~fhit) and np.abs(fd - dd).max() <= 1e-5
+    fagree = float((fk[fhit] == dk[fhit]).mean())
+    assert fagree >= 0.999, f"banded fallback keypoint agreement {fagree}"
+    log(f"K5 no-fit case: fell back to K2 on the device, agreement with K2's twin {fagree:.5f}")
+
+    ms = cuda_ms(lambda: k.guided_match_stage1_banded(*kargs, **tiles))
+    plain = cuda_ms(lambda: k.guided_match_stage1_banded_reference(*kargs, **tiles))
+    # The pairs this data needs: each active row against its tile's band.
+    uv, gate, _, ov, kuv, _, kok, starts = [x.float().cpu().numpy() if x.dtype == torch.bfloat16
+                                            else x.cpu().numpy() for x in plan.k5_args]
+    rows = n_act_h * 256
+    dots = 0
+    for i in range(n_act_h):
+        s0 = int(starts[i]) * 512
+        d2 = ((uv[i * 256:(i + 1) * 256, None] - kuv[None, s0:s0 + 1024]) ** 2).sum(-1)
+        ok = (d2 <= r * r) & gate[i * 256:(i + 1) * 256, None] & kok[None, s0:s0 + 1024]
+        dots += int((ok.sum(1) * ov[i * 256:(i + 1) * 256].sum(1)).sum())
+    row_bytes = 8 + 1 + 8 * D * 2 + 8
+    n_bytes = rows * row_bytes + nbytes(*plan.k5_args[4:]) + nbytes(n_act) + len(bk) * 8
+    return dict(name="guided_match_stage1_banded", module=k, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=None,
+                **bound(n_bytes, {"f32": 5 * rows * 1024, "bf16": 2 * D * dots}),
+                source="racing_slam_tpu_torch/csrc/match_banded_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/match_kernel.py:305")
 
 
 def _rotvec_matrix(w):
@@ -422,6 +530,61 @@ def check_attention(dev) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/attention_kernel.py:88")
 
 
+def time_schur_solvers(dev) -> dict:
+    """The headline and scale paths' plain-PyTorch solvers (no Pallas
+    kernel in the JAX package, so no kernel here): window_ba at the commit
+    shape (window_ba_budget 1024 points x O=8, F=32, W=4) and full_ba at
+    the refinement shape (refine_budget 2048 points), 10 iterations each
+    as the main path runs them. Host wall per call (they are launch-bound)
+    and device launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from racing_slam_tpu_torch.ops import ba
+    from racing_slam_tpu_torch.ops.camera import Camera
+
+    rng = np.random.default_rng(21)
+    cam = Camera(480.0, 480.0, 320.0, 240.0, 640, 480)
+    F, O = 32, 8
+
+    def problem(P):
+        rv = np.zeros((F, 3), np.float32)
+        rv[:, 1] = 0.002 * np.arange(F)
+        X = np.stack([rng.uniform(-5, 5, P), rng.uniform(-3, 3, P), rng.uniform(8, 16, P)], -1)
+        obs_cam = (F - 1 - (np.arange(O)[None] + rng.integers(0, 4, (P, 1))) % F)
+        Xc = X[:, None] + np.outer(np.arange(F), [-0.05, -0.005, -0.1])[obs_cam]
+        uv = 480.0 * Xc[..., :2] / Xc[..., 2:] + [320.0, 240.0] + rng.normal(0, 0.5, (P, O, 2))
+        t = lambda a, d=torch.float32: torch.from_numpy(np.asarray(a)).to(dev, d)  # noqa: E731
+        ones = torch.ones(P, dtype=torch.bool, device=dev)
+        return ba.BAProblem(t(rv), t(-np.outer(np.arange(F), [0.05, 0.005, 0.1])), t(X),
+                            t(obs_cam, torch.int64), t(uv),
+                            t(rng.uniform(size=(P, O)) < 0.8, torch.bool),
+                            torch.arange(F, device=dev) >= 2,
+                            torch.ones(F, dtype=torch.bool, device=dev), ones, ones)
+
+    calls = {"window_ba": (lambda p=problem(1024), s=torch.tensor([31, 30, 29, 28], device=dev):
+                           ba.window_ba(cam, p, s, max_iters=10, huber_delta=0.005)),
+             "full_ba": (lambda p=problem(2048):
+                         ba.full_ba(cam, p, max_iters=10, huber_delta=0.005))}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        out[name] = dict(wall_ms=float(np.median(walls)), device_launches=n)
+    log("schur solvers: " + json.dumps(out))
+    return out
+
+
 def superpoint_frontend(dev):
     from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
 
@@ -512,14 +675,19 @@ def full_trajectory_ate(slam, gt_poses: np.ndarray, n_frames: int) -> dict:
     return dict(ate=tot_ate, length=max(tot_len, 1e-9), coverage=covered / n_frames, n_kf=n_kf)
 
 
+CLASSICAL = ("corner_frontend_fused", "guided_match_stage1", "motion_ba_lm", "structure_ba_lm")
+# bench.py's headline configuration (bench.py:387,456) and its scale rows
+# (tools/run_matrix.py:28-32 with --match-backend banded, tools/profile_scale.py:54-62).
+HEADLINE = dict(local_ba_window=4, refine_every_frames=48)
+SCALE = dict(HEADLINE, map_capacity=16384, matching_backend="banded")
 PATHS = {
-    # name: (frontend, matcher, kernels the path must launch)
-    "classical": ("classical", "classical", ("corner_frontend_fused", "guided_match_stage1",
-                                             "motion_ba_lm", "structure_ba_lm")),
-    "learned": ("superpoint", "lightglue", ("guided_match_stage1", "motion_ba_lm",
-                                            "structure_ba_lm", "flash_mha")),
-    "lightglue": ("classical", "lightglue", ("corner_frontend_fused", "guided_match_stage1",
-                                             "motion_ba_lm", "structure_ba_lm", "flash_mha")),
+    # name: (frontend, matcher, world frames, SlamConfig overrides, kernels it must launch)
+    "classical": ("classical", "classical", N_FRAMES, {}, CLASSICAL),
+    "learned": ("superpoint", "lightglue", N_FRAMES, {}, CLASSICAL[1:] + ("flash_mha",)),
+    "lightglue": ("classical", "lightglue", N_FRAMES, {}, CLASSICAL + ("flash_mha",)),
+    "headline": ("classical", "classical", N_FRAMES, HEADLINE, CLASSICAL),
+    "scale": ("classical", "classical", SCALE_FRAMES, SCALE,
+              CLASSICAL + ("guided_match_stage1_banded",)),
 }
 
 
@@ -561,17 +729,18 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
     from racing_slam_tpu_torch.slam.pipeline import Slam
     from racing_slam_tpu_torch.utils.video import ArraySource
 
-    frontend_kind, matcher, needed = PATHS[path]
-    # bench.py headline config with local_ba_window=1 and refine_every_frames=0;
-    # bench.py --variant learned|lightglue set matcher="lightglue" (threshold 0.35).
-    cfg = SlamConfig(
+    frontend_kind, matcher, _, overrides, needed = PATHS[path]
+    # bench.py's configuration, by default with local_ba_window=1 and
+    # refine_every_frames=0; bench.py --variant learned|lightglue set
+    # matcher="lightglue" (threshold 0.35).
+    cfg = SlamConfig(**{**dict(
         match_radius_px=28.0, ransac_threshold_px=0.4, cull_reproj_px=3.0, inlier_px=3.0,
         triangulation_reproj_px=2.0, pose_prediction="constant_velocity",
         triangulate_points=True, bundle_adjust=True, optimize_pose=True, cull_points=True,
         max_keyframes=32, map_capacity=4096, max_observations=8, archive_capacity=512,
         reproj_monitor_every=0, refine_every_frames=0, local_ba_window=1,
         keyframe_match_ratio=0.8, matcher=matcher,
-    )
+    ), **overrides})
     frontend = superpoint_frontend(dev) if frontend_kind == "superpoint" else None
     slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev)
     for kern in kernels:
@@ -589,6 +758,9 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
         t_track = time.time() - t1
         torch.cuda.set_sync_debug_mode("default")
     launches = {kern["name"]: kern["module"].launches for kern in kernels}
+    fallbacks = slam.banded_fallbacks() if cfg.matching_backend == "banded" else None
+    kfs = slam.state.kfs
+    kp_valid = kfs.kp_valid.sum(dim=1)[kfs.valid].cpu().numpy()  # valid keypoints a keyframe
     flagged = [w for w in caught if "synchroniz" in str(w.message)]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
     log(f"{path}: synchronising calls flagged by torch.cuda sync debug mode: {len(flagged)}, "
@@ -605,17 +777,26 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
         syncs_per_tracked_frame=slam.host_syncs["track"] / max(tracked, 1),
         sync_debug_flagged=len(flagged),
         launches=launches,
+        refines=len(slam.refine_costs), banded_fallbacks=fallbacks,
+        keyframe_keypoints=[int(kp_valid.min()), int(kp_valid.max())],
     )
     log(f"{path}: " + json.dumps(res))
     assert res["ate_pct"] <= 10.0, f"{path}: ATE {res['ate_pct']:.2f} % > 10 %"
     assert res["coverage"] >= 0.85, f"{path}: coverage {res['coverage']:.3f} < 0.85"
     assert res["syncs_per_tracked_frame"] <= 1.0, res["host_syncs"]
     bootstraps = 1 + slam.n_reinits
+    single = cfg.local_ba_window <= 1  # otherwise the window BA solves every commit
     want = {"corner_frontend_fused": tracked, "guided_match_stage1": 2 * tracked,
-            "motion_ba_lm": 2 * tracked, "structure_ba_lm": n_commits + bootstraps,
+            "guided_match_stage1_banded": 2 * tracked, "motion_ba_lm": 2 * tracked,
+            "structure_ba_lm": n_commits * single + bootstraps,
             "flash_mha": 8 * (n_commits + bootstraps)}  # 2 layers x 4 attention sites
     for name in needed:
         assert launches[name] >= want[name], f"{path}: {name} launched {launches[name]} < {want[name]}"
+    if cfg.refine_every_frames:
+        assert res["refines"] >= n // cfg.refine_every_frames, res["refines"]
+    if fallbacks is not None:
+        log(f"{path}: the band did not fit in {fallbacks} of "
+            f"{launches['guided_match_stage1_banded']} banded searches (K2 answered those)")
     if profile_frames:
         log(f"{path} profile: " + json.dumps(profile_path(slam, frames, profile_frames)))
     return res
@@ -651,25 +832,36 @@ def main() -> int:
     from racing_slam_tpu_torch.ops.camera import Camera
 
     cam = Camera(fx=480.0, fy=480.0, cx=320.0, cy=240.0, width=640, height=480)
-    t0 = time.time()
-    frames, gt = render_bench_world(seeds[0], cam, N_FRAMES)
-    log(f"rendered {len(frames)} frames of seed {seeds[0]} in {time.time() - t0:.1f} s")
+
+    def worlds(seed: int) -> dict:
+        """The seed's bench worlds by length (a world depends on its length)."""
+        out = {}
+        for n in sorted({p[2] for p in PATHS.values()}, reverse=True):
+            t0 = time.time()
+            out[n] = render_bench_world(seed, cam, n)
+            log(f"rendered {n} frames of seed {seed} in {time.time() - t0:.1f} s")
+        return out
+
+    world = worlds(seeds[0])
+    frames = world[N_FRAMES][0]
 
     kernels = [check_frontend(frames[1], dev), check_match(dev), check_motion_ba(dev),
-               check_structure_ba(dev), check_attention(dev)]
+               check_structure_ba(dev), check_match_banded(dev), check_attention(dev)]
     d256 = check_match(dev, D=256)
     kernels[1]["d256"] = {key: d256[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
     for kern in kernels:
         log(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain PyTorch {kern['plain_ms']:.4f} ms, "
             f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library {kern['library_ms']}")
     check_superpoint(frames[1], dev)
+    time_schur_solvers(dev)
 
-    runs = {path: run_path(path, dev, kernels, cam, frames, gt, args.profile) for path in PATHS}
+    runs = {path: run_path(path, dev, kernels, cam, *world[PATHS[path][2]], args.profile)
+            for path in PATHS}
     for seed in seeds[1:]:
-        frames_s, gt_s = render_bench_world(seed, cam, N_FRAMES)
+        world_s = worlds(seed)
         for path in PATHS:
             log(f"seed {seed}:")
-            run_path(path, dev, kernels, cam, frames_s, gt_s)
+            run_path(path, dev, kernels, cam, *world_s[PATHS[path][2]])
     table = []
     for kern in kernels:
         by_path = {path: r["launches"][kern["name"]] for path, r in runs.items()}

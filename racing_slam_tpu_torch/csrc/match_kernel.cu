@@ -18,32 +18,35 @@
 // DPL = 8 (D <= 256, the learned path's SuperPoint descriptors), so the
 // 128-d path holds no zero padding. A pair's O dot products and the keypoint
 // norm are warp-shuffle reductions.
-#include <cuda_bf16.h>
-
-#include "common.cuh"
+//
+// `skip` (may be null) is a device flag: when it is set, the call writes
+// (0, 1e9) everywhere and returns. The banded matcher launches this kernel
+// as its dense fallback with skip = "the band fit", so that the choice
+// between K5 and K2 is made on the device, without a host read. Only the
+// SKIP instance reads the flag; the dense path runs the instance without
+// it. Both choices are measured on an H100 on the classical path's own K2
+// inputs (tools/match_ab.py, PERF.md): reading the flag in every call made
+// this code 20 % slower, and a version holding the point in K5's
+// PointDescs (match_common.cuh) was 20 % slower too, so K2 keeps its
+// point's descriptors inline.
+#include "match_common.cuh"
 
 namespace {
 
+using namespace slam_match;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int KT = 256;      // keypoints staged per tile
-constexpr int MAX_O = 8;
-constexpr float BIG = 1e9f;
+constexpr int KT = 256;  // keypoints staged per tile
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int DPL>  // descriptor values per lane: D <= 32 * DPL
+template <int DPL, bool SKIP>  // descriptor values per lane: D <= 32 * DPL
 __global__ void __launch_bounds__(THREADS)
 guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ gate_p,
                     const __nv_bfloat16* __restrict__ obs_desc,
                     const uint8_t* __restrict__ obs_valid, const float* __restrict__ kp_uv,
                     const float* __restrict__ kp_desc, const uint8_t* __restrict__ kp_ok,
-                    int* __restrict__ best_k, float* __restrict__ best_d, int P, int O, int D,
-                    int K, float radius_sq) {
+                    const uint8_t* __restrict__ skip, int* __restrict__ best_k,
+                    float* __restrict__ best_d, int P, int O, int D, int K, float radius_sq) {
   __shared__ float s_u[KT];
   __shared__ float s_v[KT];
   __shared__ uint8_t s_ok[KT];
@@ -51,6 +54,13 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int p = blockIdx.x * WARPS + warp;
+  if (SKIP && *skip != 0) {
+    if (p < P && lane == 0) {
+      best_k[p] = 0;
+      best_d[p] = BIG;
+    }
+    return;
+  }
   const bool active = p < P && gate_p[p] != 0;  // uniform within the warp
   const int dpl = D / 32;
 
@@ -145,23 +155,33 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
   }
 }
 
+template <int DPL>
+void launch(int blocks, cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
+            const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
+            const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip, int* best_k,
+            float* best_d, int P, int O, int D, int K, float radius_sq) {
+  if (skip != nullptr)
+    guided_match_kernel<DPL, true><<<blocks, THREADS, 0, stream>>>(
+        uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P, O, D,
+        K, radius_sq);
+  else
+    guided_match_kernel<DPL, false><<<blocks, THREADS, 0, stream>>>(
+        uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P, O, D,
+        K, radius_sq);
+}
+
 }  // namespace
 
 SLAM_API int slam_guided_match(const float* uv_p, const uint8_t* gate_p,
                                const __nv_bfloat16* obs_desc, const uint8_t* obs_valid,
                                const float* kp_uv, const float* kp_desc, const uint8_t* kp_ok,
-                               int* best_k, float* best_d, int P, int O, int D, int K,
-                               float radius_sq, cudaStream_t stream) {
+                               const uint8_t* skip, int* best_k, float* best_d, int P, int O,
+                               int D, int K, float radius_sq, cudaStream_t stream) {
   if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 || K < 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (P + WARPS - 1) / WARPS;
-  if (D <= 128)
-    guided_match_kernel<4><<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid,
-                                                           kp_uv, kp_desc, kp_ok, best_k, best_d,
-                                                           P, O, D, K, radius_sq);
-  else
-    guided_match_kernel<8><<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid,
-                                                           kp_uv, kp_desc, kp_ok, best_k, best_d,
-                                                           P, O, D, K, radius_sq);
+  (D <= 128 ? launch<4> : launch<8>)(blocks, stream, uv_p, gate_p, obs_desc, obs_valid, kp_uv,
+                                     kp_desc, kp_ok, skip, best_k, best_d, P, O, D, K,
+                                     radius_sq);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,15 @@ CUDA kernel:
 
 Each kernel's wrapper runs the kernel for CUDA tensors and its plain twin
 for CPU tensors.
+
+The Schur solvers of the scale and headline paths, ``window_ba`` (the
+commit's local BA with W newest keyframes free) and ``full_ba`` (periodic
+refinement), have no Pallas kernel in the JAX package and are plain
+PyTorch here: one point elimination (``build_reduced_system`` over all
+cameras, the window's W slots for ``window_ba``), ``solve_camera_system``
+and ``back_substitute_points``. Their LM loops run a fixed number of
+iterations with a device-side stop flag instead of reading the JAX
+while_loop's exit condition back to the host.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .camera import Camera
+from .se3 import exp_so3
 
 HUBER_DELTA = math.sqrt(5.991)
 MAX_ITERS = 10
@@ -287,22 +297,247 @@ def obs_include(prob: BAProblem) -> tuple[torch.Tensor, torch.Tensor]:
     return include, safe_cam
 
 
+def _camera_points(cam: Camera, prob: BAProblem):
+    """(R [P, O, 3, 3], points in each observing camera [P, O, 3], the
+    normalised observations [P, O, 2]) with one rotation matrix per camera."""
+    _, safe_cam = obs_include(prob)
+    R = exp_so3(prob.cam_rvec)[safe_cam]
+    Xc = torch.einsum("poij,pj->poi", R, prob.points) + prob.cam_t[safe_cam]
+    n = torch.stack([(prob.obs_uv[..., 0] - cam.cx) / cam.fx,
+                     (prob.obs_uv[..., 1] - cam.cy) / cam.fx], dim=-1)
+    return R, Xc, n
+
+
+def _problem_cost(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA) -> torch.Tensor:
+    """The robust cost of the included observations, from the residuals
+    alone: a dozen tensor operations (the LM loops evaluate a trial cost
+    every iteration)."""
+    include, _ = obs_include(prob)
+    _, Xc, n = _camera_points(cam, prob)
+    z = Xc[..., 2:]
+    r = Xc[..., :2] / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z) - n
+    s = torch.sum(r * r, dim=-1)
+    return torch.sum(torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
+
+
 def _obs_terms(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA):
-    """Per-observation residuals, weights, Jacobians. Shapes [P, O, ...]."""
-    P, O = prob.obs_cam.shape
+    """Per-observation residuals, weights and Jacobians, shapes [P, O, ...],
+    in 3x3 matrix form: per camera R and J_r, per observation J_p = A R and
+    J_c = [A (-R [X]x J_r), A] with A = d r / d p_cam. About 40 tensor
+    operations, where the JAX package's scalar expansion (kept in
+    residual_and_jacobians for the K3/K4 twins) would be some 150 launches
+    on the card; the values agree to float32 rounding."""
+    from .se3 import hat
+
     include, safe_cam = obs_include(prob)
-    rv = prob.cam_rvec[safe_cam]
-    tt = prob.cam_t[safe_cam]
-    X = prob.points[:, None, :].expand(P, O, 3)
-    r, Jc, Jp = residual_and_jacobians(rv, tt, X, prob.obs_uv, cam.fx, cam.cx, cam.cy)
+    R, Xc, n = _camera_points(cam, prob)
+    z = Xc[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    g = Xc[..., :2] * inv_z[..., None]
+    r = g - n
+    eye2 = torch.eye(2, dtype=g.dtype, device=g.device).expand(*g.shape[:-1], 2, 2)
+    A = inv_z[..., None, None] * torch.cat([eye2, -g[..., None]], dim=-1)  # [P, O, 2, 3]
+    dpdv = -(R @ hat(prob.points)[:, None]) @ right_jacobian_so3(prob.cam_rvec)[safe_cam]
+    Jc = torch.cat([A @ dpdv, A], dim=-1)
+    Jp = A @ R
     s = torch.sum(r * r, dim=-1)
     w = torch.where(include, huber_weight(s, huber_delta), torch.zeros_like(s))
     return r, s, w, Jc, Jp, include, safe_cam
 
 
-def _problem_cost(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA) -> torch.Tensor:
-    _, s, _, _, _, include, _ = _obs_terms(cam, prob, huber_delta)
-    return torch.sum(torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
+def _damped(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Ceres-style scaled-diagonal damping H + lam diag(H) + 1e-9 I."""
+    n = H.shape[-1]
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    d = torch.diagonal(H, dim1=-2, dim2=-1)
+    return H + lam * d[..., :, None] * eye + 1e-9 * eye
+
+
+def _add_block_diag(S: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """S[a, a] += blocks[a] for S [n, n, k, k], blocks [n, k, k]."""
+    n = S.shape[0]
+    on_diag = torch.eye(n, dtype=torch.bool, device=S.device)[:, :, None, None]
+    return torch.where(on_diag, S + blocks[:, None], S)
+
+
+def _add_drop(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """x.at[idx].add(vals, mode="drop"): rows with idx outside [0, N) go to a
+    sentinel row N that is sliced off."""
+    N = x.shape[0]
+    tgt = torch.where((idx >= 0) & (idx < N), idx, torch.full_like(idx, N)).long()
+    ext = torch.cat([x, torch.zeros_like(x[:1])], dim=0)
+    return ext.index_add(0, tgt, vals.to(x.dtype))[:N]
+
+
+class ReducedSystem(NamedTuple):
+    """Output of landmark elimination (summable over landmark shards)."""
+
+    S: torch.Tensor  # [C, C, 6, 6] reduced camera Hessian (C cameras or window slots)
+    g_red: torch.Tensor  # [C, 6] reduced gradient
+    Hpp_inv: torch.Tensor  # [P, 3, 3] damped inverse (zero for frozen points)
+    g_p: torch.Tensor  # [P, 3]
+    W: torch.Tensor  # [P, O, 6, 3] camera-point coupling blocks
+
+
+def _eliminate_points(
+    cam: Camera, prob: BAProblem, lam: torch.Tensor, onehot: torch.Tensor, huber_delta: float,
+) -> tuple[ReducedSystem, torch.Tensor]:
+    """Landmark elimination against the C camera blocks that `onehot`
+    [P, O, C] assigns each observation to (none: an anchor through the
+    point blocks only); the reduced system and the robust cost.
+
+    The camera blocks are staged as per-observation outer products times the
+    one-hot (two matrix products, every intermediate [P*O, 36]), as the JAX
+    package does; damping is H + lam diag(H) + 1e-9 I."""
+    P, O, C = onehot.shape
+    r, s, w, Jc, Jp, include, _ = _obs_terms(cam, prob, huber_delta)
+    cost = torch.sum(torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
+
+    Jc_w = Jc * w[..., None, None]  # [P, O, 2, 6]
+    N = P * O
+    oh_n = onehot.reshape(N, C)
+    G = torch.einsum("nri,nrj->nij", Jc_w.reshape(N, 2, 6), Jc.reshape(N, 2, 6))
+    Hcc = (oh_n.T @ G.reshape(N, 36)).reshape(C, 6, 6)
+    g_cn = torch.einsum("nri,nr->ni", Jc_w.reshape(N, 2, 6), r.reshape(N, 2))
+    g_c = oh_n.T @ g_cn  # [C, 6]
+
+    Jp_w = Jp * w[..., None, None]
+    Hpp = torch.einsum("pori,porj->pij", Jp_w, Jp)
+    g_p = torch.einsum("pori,por->pi", Jp_w, r)
+    W = torch.einsum("pori,porj->poij", Jc_w, Jp)  # [P, O, 6, 3]
+
+    Hpp_inv = inv3x3(_damped(Hpp, lam)) * prob.point_free[:, None, None]
+    Y = torch.einsum("poc,poik->pcik", onehot, W)  # [P, C, 6, 3]
+    Z = torch.einsum("pcik,pkl->pcil", Y, Hpp_inv)
+    S = _add_block_diag(-torch.einsum("pail,pbjl->abij", Z, Y), _damped(Hcc, lam))
+    g_red = g_c - torch.einsum("pcik,pk->ci", Z, g_p)
+    return ReducedSystem(S=S, g_red=g_red, Hpp_inv=Hpp_inv, g_p=g_p, W=W), cost
+
+
+def build_reduced_system(
+    cam: Camera, prob: BAProblem, lam: torch.Tensor, huber_delta: float = HUBER_DELTA,
+) -> tuple[ReducedSystem, torch.Tensor]:
+    """Eliminate the points: the reduced camera system over all F cameras
+    of one landmark set and the robust cost of the current parameters."""
+    F = prob.cam_rvec.shape[0]
+    _, safe_cam = obs_include(prob)
+    onehot = (safe_cam[..., None] == torch.arange(F, device=safe_cam.device))
+    return _eliminate_points(cam, prob, lam, onehot.to(prob.points.dtype), huber_delta)
+
+
+def solve_camera_system(S: torch.Tensor, g_red: torch.Tensor,
+                        cam_free: torch.Tensor) -> torch.Tensor:
+    """Solve the dense reduced camera system; frozen cameras get zeroed rows
+    and columns and an identity block, so their step is exactly zero.
+    `solve_ex` reports a singular system in its info tensor instead of
+    reading it back to the host."""
+    F = S.shape[0]
+    m = cam_free.to(S.dtype)
+    S = S * (m[:, None, None, None] * m[None, :, None, None])
+    eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
+    S = _add_block_diag(S, (1.0 - m)[:, None, None] * eye6)
+    g = g_red * m[:, None]
+    S_dense = S.permute(0, 2, 1, 3).reshape(F * 6, F * 6)
+    delta, _ = torch.linalg.solve_ex(S_dense, g.reshape(F * 6, 1))
+    return -delta.reshape(F, 6)
+
+
+def back_substitute_points(rs: ReducedSystem, delta_c: torch.Tensor,
+                           safe_cam: torch.Tensor) -> torch.Tensor:
+    """delta_p = -Hpp_inv (g_p + sum_o W_o^T delta_c[cam_o]); [P, 3]."""
+    dc = delta_c[safe_cam]  # [P, O, 6]
+    Wt_dc = torch.einsum("poij,poi->pj", rs.W, dc)
+    return -torch.einsum("pij,pj->pi", rs.Hpp_inv, rs.g_p + Wt_dc)
+
+
+def _lm(cam: Camera, prob: BAProblem, trial, max_iters: int, init_lambda: float,
+        huber_delta: float) -> BAResult:
+    """The accept/reject LM loop of window_ba and full_ba without a host
+    read: `max_iters` iterations run, and a device-side `done` flag freezes
+    the state from the iteration at which the JAX while_loop would have
+    exited (function tolerance or lambda > 1e8). `trial(cr, ct, X, lam)`
+    returns the trial parameters."""
+    dev = prob.points.device
+    cr, ct, X = prob.cam_rvec, prob.cam_t, prob.points
+    cost = _problem_cost(cam, prob, huber_delta)
+    lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(max_iters):
+        cr_n, ct_n, X_n = trial(cr, ct, X, lam)
+        new_cost = _problem_cost(cam, prob._replace(cam_rvec=cr_n, cam_t=ct_n, points=X_n),
+                                  huber_delta)
+        accept = new_cost < cost
+        stop = (accept & (cost - new_cost <= FUNCTION_TOLERANCE * cost)) | (lam > 1e8)
+        take = accept & ~done
+        cr = torch.where(take, cr_n, cr)
+        ct = torch.where(take, ct_n, ct)
+        X = torch.where(take, X_n, X)
+        lam = torch.where(done, lam, torch.where(accept, torch.clamp(lam / 3.0, min=1e-9),
+                                                 lam * 2.5))
+        cost = torch.where(take, new_cost, cost)
+        done = done | stop
+    include, _ = obs_include(prob)
+    return BAResult(cam_rvec=cr, cam_t=ct, points=X, cost=cost, num_residuals=include.sum())
+
+
+def window_ba(
+    cam: Camera,
+    prob: BAProblem,
+    free_slots: torch.Tensor,  # [W] camera slots to optimise (-1 = unused)
+    max_iters: int = MAX_ITERS,
+    init_lambda: float = 1e-4,
+    huber_delta: float = HUBER_DELTA,
+) -> BAResult:
+    """Schur LM with a small window of free cameras (local BA at a commit).
+
+    Every coupling tensor is [P, W, ...]; `prob.cam_free` is ignored, the
+    free set is the valid entries of `free_slots`. Frozen cameras anchor
+    through the point blocks. Plain PyTorch: the JAX package has no Pallas
+    kernel here."""
+    W = free_slots.shape[0]
+    slot_ok = free_slots >= 0
+    in_slot = prob.obs_cam[..., None] == torch.where(slot_ok, free_slots, -2)  # [P, O, W]
+    onehot = in_slot.to(prob.points.dtype)
+    # Each observation's window slot, W (a zero camera step) outside it.
+    slot = torch.where(in_slot.any(-1), in_slot.to(torch.uint8).argmax(-1), W)
+    zero_step = torch.zeros((1, 6), dtype=prob.points.dtype, device=prob.points.device)
+    pf = prob.point_free[:, None]
+
+    def trial(cr, ct, X, lam):
+        rs, _ = _eliminate_points(cam, prob._replace(cam_rvec=cr, cam_t=ct, points=X), lam,
+                                  onehot, huber_delta)
+        delta_c = solve_camera_system(rs.S, rs.g_red, slot_ok)  # [W, 6]
+        delta_p = back_substitute_points(rs, torch.cat([delta_c, zero_step]), slot)
+        return (_add_drop(cr, free_slots, delta_c[:, :3]),
+                _add_drop(ct, free_slots, delta_c[:, 3:]), X + delta_p * pf)
+
+    return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta)
+
+
+def full_ba(
+    cam: Camera,
+    prob: BAProblem,
+    max_iters: int = MAX_ITERS,
+    init_lambda: float = 1e-4,
+    huber_delta: float = HUBER_DELTA,
+) -> BAResult:
+    """Schur-complement LM over keyframes and points (the periodic
+    refinement's solver): reduced camera system, dense solve, point
+    back-substitution, accept/reject. Plain PyTorch: the JAX package has
+    no Pallas kernel here."""
+    F = prob.cam_rvec.shape[0]
+    safe_cam = torch.clamp(prob.obs_cam, 0, F - 1).long()
+    cf = prob.cam_free[:, None]
+    pf = prob.point_free[:, None]
+
+    def trial(cr, ct, X, lam):
+        rs, _ = build_reduced_system(cam, prob._replace(cam_rvec=cr, cam_t=ct, points=X), lam,
+                                     huber_delta)
+        delta_c = solve_camera_system(rs.S, rs.g_red, prob.cam_free)
+        delta_p = back_substitute_points(rs, delta_c, safe_cam)
+        return cr + delta_c[:, :3] * cf, ct + delta_c[:, 3:] * cf, X + delta_p * pf
+
+    return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta)
 
 
 def structure_ba(

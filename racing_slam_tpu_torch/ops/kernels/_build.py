@@ -1,8 +1,9 @@
 """Build, load and call the CUDA kernels (nvcc -> shared library -> ctypes).
 
-All ``csrc/*.cu`` files are compiled by ONE nvcc call for sm_90a into
-``build/kernels/libslamkernels.so`` at the repository root, on first use, and
-rebuilt only when a hash of the sources changes. The library exposes a plain
+Each ``csrc/*.cu`` file is compiled for sm_90a by its own nvcc process, all
+started together, and the objects are linked into
+``build/kernels/libslamkernels.so`` at the repository root, on first use;
+the library is rebuilt only when a hash of the sources changes. The library exposes a plain
 C interface: each entry point takes device pointers, sizes and the CUDA
 stream, launches its kernel and returns ``cudaGetLastError()``; the wrappers
 raise when that is not 0. No PyTorch header is compiled, which keeps the
@@ -26,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libslamkernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -36,9 +37,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # img, mask|NULL, resp, peaks, blur2, B, H, W, taps1, r1, taps2, r2, border, stream
     "slam_frontend": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
-    # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, best_k, best_d,
-    # P, O, D, K, radius_sq, stream
-    "slam_guided_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip|NULL, best_k,
+    # best_d, P, O, D, K, radius_sq, stream
+    "slam_guided_match": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, starts, n_act,
+    # best_k, best_d, P, O, D, K, tile_p, tile_k, band, radius_sq, stream
+    "slam_guided_match_banded": [_P] * 11 + [_I] * 7 + [_F, _P],
     # pose0, kp_uv, xyz, valid, out, K, fx, cx, cy, lam0, huber, ftol, iters, stream
     "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,
@@ -84,18 +88,28 @@ def build(verbose: bool = False) -> Path:
     digest = source_hash()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = find_nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+    failed = [f"{src}: nvcc failed ({rc}):\n{out}" for src, out, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("".join(out for _, out, _ in logs))
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib

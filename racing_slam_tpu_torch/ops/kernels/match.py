@@ -75,12 +75,24 @@ def guided_match_stage1(
     kp_desc: torch.Tensor,  # [K, D] f32 or bf16
     kp_ok: torch.Tensor,  # [K] bool
     radius_px: float = 20.0,
+    skip: torch.Tensor | None = None,  # 0-d bool on the device: write (0, 1e9) and stop
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(best_k [P] i32, best_d_sq [P] f32; 1e9 where nothing passed)."""
-    if _build.device_kind(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok) == "cpu":
-        return guided_match_stage1_reference(
+    """(best_k [P] i32, best_d_sq [P] f32; 1e9 where nothing passed).
+
+    `skip` lets a caller decide on the device whether this call does any
+    work (the banded matcher's dense fallback): where it is True the
+    result is (0, 1e9) everywhere. It is read by the kernel, never by the
+    host."""
+    tensors = (uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip)
+    if _build.device_kind(*tensors) == "cpu":
+        out = guided_match_stage1_reference(
             uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, radius_px
         )
+        if skip is None:
+            return out
+        bk, bd = out
+        return (torch.where(skip, torch.zeros_like(bk), bk),
+                torch.where(skip, torch.full_like(bd, BIG), bd))
     P, O, D = obs_desc.shape
     K = kp_uv.shape[0]
     obs_desc = obs_desc.to(torch.bfloat16)  # no-op for the state's bf16 cache
@@ -95,12 +107,14 @@ def guided_match_stage1(
     _build.expect(kp_uv, "kp_uv", torch.float32, (K, 2))
     _build.expect(kp_desc, "kp_desc", torch.float32, (K, D))
     _build.expect(kp_ok, "kp_ok", torch.bool, (K,))
+    if skip is not None:
+        _build.expect(skip, "skip", torch.bool, ())
     best_k = torch.empty((P,), dtype=torch.int32, device=uv_p.device)
     best_d = torch.empty((P,), dtype=torch.float32, device=uv_p.device)
     err = _build.lib().slam_guided_match(
         _build.ptr(uv_p), _build.ptr(gate_p), _build.ptr(obs_desc), _build.ptr(obs_valid),
-        _build.ptr(kp_uv), _build.ptr(kp_desc), _build.ptr(kp_ok), _build.ptr(best_k),
-        _build.ptr(best_d), P, O, D, K, float(radius_px * radius_px),
+        _build.ptr(kp_uv), _build.ptr(kp_desc), _build.ptr(kp_ok), _build.ptr(skip),
+        _build.ptr(best_k), _build.ptr(best_d), P, O, D, K, float(radius_px * radius_px),
         _build.stream(uv_p.device),
     )
     _build.check(err, "guided_match_stage1")

@@ -2,10 +2,17 @@
 
 - frame<->frame: mutual 1-NN over one [K1, K2] distance matrix with a gate.
 - map->frame: a masked [P, K] min reduction. Stage 1 (best keypoint per
-  point) is kernel K2 (ops/kernels/match.py); stage 2 (best point per
-  keypoint, lowest point index on ties) is a scatter-min here.
+  point) is kernel K2 (ops/kernels/match.py) on the dense path, or, with
+  backend="banded" (the large-map scale path), kernel K5
+  (ops/kernels/match_banded.py) over y-sorted points and keypoints, each
+  256-point tile searching only the two 512-keypoint tiles around its
+  y-range; stage 2 (best point per keypoint, lowest point index on ties) is
+  a scatter-min here.
 
-Only the dense path is ported; the banded scale path comes in a later PR.
+Where the band does not fit, the JAX package falls back to the dense kernel
+under lax.cond. Here both kernels are launched and a device flag decides
+which one works (K5 with no active tile, or K2 with `skip`), so the choice
+costs no host read; `MapMatches.fell_back` carries the flag.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from .camera import Camera, is_in_image, project_with_depth
 from .kernels.match import guided_match_stage1
+from .kernels.match_banded import guided_match_stage1_banded
 
 SEARCH_RADIUS_PX = 20.0
 _BIG = 1e9
@@ -31,6 +39,7 @@ class MapMatches(NamedTuple):
     point_idx: torch.Tensor  # [K] int64 map slot (-1 where ~valid)
     distance: torch.Tensor  # [K] f32
     valid: torch.Tensor  # [K] bool
+    fell_back: torch.Tensor | None = None  # 0-d bool (banded: the dense kernel ran)
 
 
 def _pairwise_sq_dists(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -79,23 +88,146 @@ def match_map_to_frame(
     point_already_matched: torch.Tensor,
     max_distance: float,
     radius_px: float = SEARCH_RADIUS_PX,
+    backend: str = "auto",
 ) -> MapMatches:
     """Guided projection search of map points into a frame.
 
-    Stage 1 is kernel K2 for CUDA tensors and its plain twin for CPU tensors.
+    Stage 1 is kernel K2 ("auto") or the banded search with kernel K5
+    ("banded") for CUDA tensors, and their plain twins for CPU tensors.
     """
+    if backend not in ("auto", "banded"):
+        raise ValueError(f"backend={backend!r}: 'auto' or 'banded'")
     P = point_xyz.shape[0]
     K = kp_uv.shape[0]
     uv_p, depth = project_with_depth(cam, pose, point_xyz)
     gate_p = point_mask & ~point_already_matched & is_in_image(cam, uv_p) & (depth > 0.0)
     kp_ok = kp_valid & ~kp_already_matched
-    best_k, best_d = guided_match_stage1(
-        uv_p.contiguous(), gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok,
-        radius_px=radius_px,
-    )
+    fell_back = None
+    if backend == "banded":
+        best_k, best_d, fell_back = _banded_stage1(
+            uv_p.contiguous(), gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok,
+            radius_px=radius_px,
+        )
+    else:
+        best_k, best_d = guided_match_stage1(
+            uv_p.contiguous(), gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok,
+            radius_px=radius_px,
+        )
     best_d = torch.sqrt(torch.clamp(best_d, max=_BIG))
     best_d = torch.where(best_d < max_distance, best_d, torch.full_like(best_d, _BIG))
-    return _stage2(best_k.long(), best_d, P, K)
+    return _stage2(best_k.long(), best_d, P, K)._replace(fell_back=fell_back)
+
+
+def _pad(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """x with n rows of `fill` appended."""
+    if not n:
+        return x
+    return torch.cat([x, torch.full((n, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+
+
+class BandPlan(NamedTuple):
+    """The banded search's inputs to kernel K5 and what maps them back."""
+
+    k5_args: tuple  # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok (sorted), starts
+    n_act: torch.Tensor  # 0-d int64: point tiles holding gated points
+    fits: torch.Tensor  # 0-d bool: every band fits and the gated points fit in G rows
+    p_sel: torch.Tensor  # [G] sorted row -> padded point slot
+    kp_order: torch.Tensor  # [Kp] sorted keypoint -> original index (0 for padding)
+
+
+def band_plan(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, *, radius_px: float,
+              tile_p: int = 256, tile_k: int = 512, band_tiles: int = 2) -> BandPlan:
+    """Sort and band the inputs of the banded stage 1 (see _banded_stage1).
+
+    Points sort gated-first by projected y, keypoints by y (stable sorts, as
+    jnp.argsort: the sorted order decides ties). Only the first G sorted
+    rows can be active (G = P/2 at P >= 8192), so only they are gathered.
+    Each point tile's band starts at the keypoint tile holding its lowest y
+    minus the radius; it fits when `band_tiles` tiles reach its highest y
+    plus the radius."""
+    P = obs_desc.shape[0]
+    K = kp_uv.shape[0]
+    far = 1e8
+    pad_p = (-P) % tile_p
+    Pp = P + pad_p
+    G = Pp if Pp < 8192 else max(tile_p, (Pp // 2 // tile_p) * tile_p)
+    n_tiles = G // tile_p
+    n_k = max(-(-K // tile_k), band_tiles)
+    pad_k = n_k * tile_k - K
+
+    # Keypoints sorted by y (invalid ones last), padded to the tile grid.
+    kp_y = torch.where(kp_ok, kp_uv[:, 1], torch.full_like(kp_uv[:, 1], far))
+    kp_order = torch.argsort(kp_y, stable=True)
+    kp_y_s = _pad(kp_y[kp_order], pad_k, far)
+
+    # Points sorted gated-first by projected y; padding rows are ungated
+    # (and read row P-1, which no gate lets through).
+    p_y = _pad(torch.where(gate_p, uv_p[:, 1], torch.full_like(uv_p[:, 1], far)), pad_p, far)
+    p_sel = torch.argsort(p_y, stable=True)[:G]
+    src = torch.clamp(p_sel, max=P - 1)
+
+    # Per point tile: the keypoint band covering its y-range +- the radius.
+    y_t = p_y[p_sel].reshape(n_tiles, tile_p)
+    g_t = y_t < far
+    lo = torch.where(g_t, y_t, torch.full_like(y_t, float("inf"))).amin(dim=1) - radius_px
+    hi = torch.where(g_t, y_t, torch.full_like(y_t, float("-inf"))).amax(dim=1) + radius_px
+    lo_idx = torch.searchsorted(kp_y_s, lo)
+    hi_idx = torch.searchsorted(kp_y_s, hi, right=True)
+    start = lo_idx // tile_k
+    end = torch.maximum(hi_idx - 1, lo_idx) // tile_k
+    needed = torch.where(g_t.any(dim=1), end - start + 1, torch.ones_like(start))
+    start = torch.clamp(start, 0, n_k - band_tiles).to(torch.int32)
+    n_gated = gate_p.sum()
+    return BandPlan(
+        k5_args=(uv_p[src], _pad(gate_p, pad_p, False)[p_sel], obs_desc[src], obs_valid[src],
+                 _pad(kp_uv[kp_order], pad_k, 1e7), _pad(kp_desc[kp_order], pad_k, 0),
+                 _pad(kp_ok[kp_order], pad_k, False), start),
+        n_act=(n_gated + tile_p - 1) // tile_p,
+        fits=(needed <= band_tiles).all() & (n_gated <= G),
+        p_sel=p_sel,
+        kp_order=_pad(kp_order, pad_k, 0),
+    )
+
+
+def _banded_stage1(
+    uv_p: torch.Tensor,
+    gate_p: torch.Tensor,
+    obs_desc: torch.Tensor,
+    obs_valid: torch.Tensor,
+    kp_uv: torch.Tensor,
+    kp_desc: torch.Tensor,
+    kp_ok: torch.Tensor,
+    *,
+    radius_px: float,
+    tile_p: int = 256,
+    tile_k: int = 512,
+    band_tiles: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Grid-hash stage 1: (best_k [P] int64, best_d_sq [P], fell_back 0-d bool).
+
+    Each point tile searches only the keypoint tiles covering its y-range
+    (band_plan). Visiting a superset of the needed band is exact, because
+    the pixel gate still rejects far pairs. When a band is wider than
+    `band_tiles` tiles, or gated points overflow G, the band does not fit:
+    K5 then sees no active tile and K2, launched beside it, does the dense
+    search. Ties go to the lowest y-sorted keypoint, which may differ from
+    the dense path's lowest original index.
+    """
+    P = obs_desc.shape[0]
+    tiles = dict(radius_px=radius_px, tile_p=tile_p, tile_k=tile_k, band_tiles=band_tiles)
+    plan = band_plan(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, **tiles)
+    n_act = torch.where(plan.fits, plan.n_act, torch.zeros_like(plan.n_act)).to(torch.int32)
+    bk_s, bd_s = guided_match_stage1_banded(*plan.k5_args, n_act, **tiles)
+    # Back to the original keypoint and point numbering.
+    Pp = P + (-P) % tile_p
+    bk = plan.kp_order[bk_s.long()]
+    out_k = torch.zeros((Pp,), dtype=torch.int64, device=bk.device).index_put((plan.p_sel,), bk)
+    out_d = torch.full((Pp,), _BIG, device=bk.device).index_put((plan.p_sel,), bd_s)
+
+    dk, dd = guided_match_stage1(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok,
+                                 radius_px=radius_px, skip=plan.fits)
+    return (torch.where(plan.fits, out_k[:P], dk.long()), torch.where(plan.fits, out_d[:P], dd),
+            ~plan.fits)
 
 
 def _stage2(best_k: torch.Tensor, best_d: torch.Tensor, P: int, K: int) -> MapMatches:

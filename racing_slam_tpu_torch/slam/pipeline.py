@@ -21,14 +21,24 @@ decides per site:
   Python loop over the frames of the batch; there are no padding slots.
 - the reprojection monitor: a host branch on the same is_kf read, or a
   masked update when it runs every N frames.
+- the hybrid commit cadence (pipeline.py:274, `window_ba_every > 1`): a host
+  branch on the commit number, which `Slam` counts from the is_kf it
+  reads anyway (arch_count + num_kf on the device).
+- the banded matcher's dense fallback (matching.py:357): masked compute.
+  K5 and K2 are both launched and a device flag lets exactly one work; the
+  `Slam` sums the flags on the device (`Slam.banded_fallbacks()`).
+- the window BA and refinement LM loops (lax.while_loop): a fixed number of
+  iterations with a device-side stop flag.
 
 The frame<->frame matcher at the commit's triangulation and in the
 bootstrap is `frontend.matcher`: mutual 1-NN, or LightGlue (kernel K6 at
 every attention site) with `SlamConfig.matcher="lightglue"`. The frontend
 is the classical one (kernel K1) or `models.superpoint.SuperPointFrontend`.
 
-The port covers the reference commit shape (`local_ba_window=1`) without
-periodic refinement; the configuration values of later slices raise
+The commit solves either the reference shape (`local_ba_window=1`, kernel
+K4) or a window of the W newest keyframes (`window_ba`); `Slam` runs the
+periodic whole-map refinement (`refine_every_frames`, `full_ba` over the
+compacted live map). Configuration values of later slices raise
 NotImplementedError when the driver is built.
 """
 
@@ -43,12 +53,18 @@ import torch
 from ..device import resolve_device
 from ..models import lightglue
 from ..ops import se3
-from ..ops.ba import HUBER_DELTA, BAProblem, motion_ba, structure_ba
+from ..ops.ba import HUBER_DELTA, BAProblem, full_ba, motion_ba, structure_ba, window_ba
 from ..ops.camera import Camera, project_with_depth
 from ..ops.image import bilinear_sample
 from ..ops.matching import match_map_to_frame, unmatched_mask
 from ..ops.ransac import estimate_relative_pose
 from ..ops.triangulation import triangulate_points
+from ..parallel.refine import (
+    apply_refinement,
+    apply_refinement_compact,
+    build_global_problem,
+    build_global_problem_compact,
+)
 from .config import SlamConfig
 from .frontend import ClassicalFrontend, LightGlueMatcher
 from .state import (
@@ -81,15 +97,13 @@ class StepInfo(NamedTuple):
     n_keyframes: torch.Tensor
     reproj_error_px: torch.Tensor
     n_inliers: int
+    band_fallbacks: torch.Tensor | None = None  # banded matcher: dense fallbacks (0-2)
 
 
 # Configuration values of later slices (ROADMAP.md, "Slices of the port").
 _LATER = {
-    "local_ba_window": "slice 2 (window_ba / full_ba / refinement)",
-    "refine_every_frames": "slice 2 (window_ba / full_ba / refinement)",
     "pose_prediction": "slice 3 (adaptive / essential-matrix prediction)",
     "essential_matrix_estimation": "slice 3 (adaptive / essential-matrix prediction)",
-    "matching_backend": "slice 4 (banded matcher + kernel K5)",
 }
 
 
@@ -100,23 +114,17 @@ def check_slice_config(cfg: SlamConfig) -> None:
     The `*_backend` fields choose between XLA and Pallas in the JAX package.
     The port has no such choice: each kernel wrapper runs its CUDA kernel for
     CUDA tensors and its plain twin for CPU tensors, so only "auto" (and
-    "banded", a later slice) is accepted."""
+    "banded" for the matcher, the scale path's search) is accepted."""
     for field in ("matching_backend", "ba_backend", "frontend_backend"):
         value = getattr(cfg, field)
         if value != "auto" and not (field == "matching_backend" and value == "banded"):
             raise ValueError(f"{field}={value!r}: the port chooses kernel or twin by "
                              "the tensors' device; only 'auto' is accepted")
     bad = []
-    if cfg.local_ba_window > 1:
-        bad.append(("local_ba_window", cfg.local_ba_window))
-    if cfg.refine_every_frames > 0:
-        bad.append(("refine_every_frames", cfg.refine_every_frames))
     if cfg.pose_prediction == "adaptive":
         bad.append(("pose_prediction", cfg.pose_prediction))
     if cfg.essential_matrix_estimation:
         bad.append(("essential_matrix_estimation", True))
-    if cfg.matching_backend == "banded":
-        bad.append(("matching_backend", cfg.matching_backend))
     if bad:
         raise NotImplementedError(
             "not ported yet: "
@@ -145,9 +153,14 @@ def _commit_keyframe(
     cam: Camera,
     cfg: SlamConfig,
     matcher,
+    commit_no: int | None = None,
 ) -> SlamState:
     """The keyframe path: eviction + archive, associations, triangulation,
-    commit BA (one free camera), cull and obs-descriptor refresh."""
+    commit BA (one free camera, or the window of the W newest), cull and
+    obs-descriptor refresh. `commit_no` is the number of keyframes written
+    since the bootstrap, the bootstrap's two included (arch_count + num_kf
+    on the device); only the hybrid cadence (`window_ba_every > 1`) needs
+    it, and `Slam` counts it on the host."""
     F = cfg.max_keyframes
     kfs, m = state.kfs, state.map
     dev = rvec.device
@@ -198,10 +211,26 @@ def _commit_keyframe(
 
     P = m.valid.shape[0]
     if cfg.bundle_adjust:
-        # Reference shape: only the new keyframe free, the points it sees
-        # free, compacted to <= Pc slots (kernel K4).
-        Pc = min(P, cfg.ba_commit_budget or -(-K // 128) * 128)
-        sel, sel_ok = m.ba_point_selection(slot, Pc)
+        W = cfg.local_ba_window
+        if W > 1 and cfg.window_ba_every > 1 and commit_no is None:
+            raise ValueError("window_ba_every > 1 needs the commit number (commit_no)")
+        window = W > 1 and (cfg.window_ba_every <= 1 or commit_no % cfg.window_ba_every == 0)
+        if window:
+            # The W newest keyframes free (two always stay frozen as gauge
+            # anchors), over the points they observe (window_ba).
+            newest_first = torch.argsort(
+                torch.where(kfs.valid, -kfs.frame_index,
+                            torch.full_like(kfs.frame_index, 1 << 30)), stable=True)
+            n_free = torch.clamp(torch.sum(kfs.valid) - 2, 1, W)
+            free_slots = torch.where(torch.arange(W, device=dev) < n_free, newest_first[:W],
+                                     torch.full_like(newest_first[:W], -1))
+            sel, sel_ok = m.ba_point_selection_mask(m.observed_by_any(free_slots) & m.valid,
+                                                    min(P, cfg.window_ba_budget))
+        else:
+            # Reference shape: only the new keyframe free, the points it
+            # sees free, compacted to <= Pc slots (kernel K4).
+            sel, sel_ok = m.ba_point_selection(
+                slot, min(P, cfg.ba_commit_budget or -(-K // 128) * 128))
         obs_kf = m.obs_kf[sel]
         obs_kp = m.obs_kp[sel]
         prob = BAProblem(
@@ -216,8 +245,12 @@ def _commit_keyframe(
             point_free=sel_ok,
             point_in_problem=sel_ok,
         )
-        res = structure_ba(cam, prob, slot, max_iters=cfg.ba_iters,
-                           huber_delta=_huber(cfg, cam))
+        if window:
+            res = window_ba(cam, prob, free_slots, max_iters=cfg.ba_iters,
+                            huber_delta=_huber(cfg, cam))
+        else:
+            res = structure_ba(cam, prob, slot, max_iters=cfg.ba_iters,
+                               huber_delta=_huber(cfg, cam))
         pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points)
         kfs = kfs._replace(rvec=res.cam_rvec, t=res.cam_t)
         m = m._replace(pos=pos)
@@ -226,13 +259,14 @@ def _commit_keyframe(
 
     if cfg.cull_points:
         # Incremental-exact cull over the points whose error inputs changed
-        # (observed by the newest keyframe, or losing an observation to the
+        # (observed by the W newest keyframes, which cover every pose and
+        # point either commit solver moved, or losing an observation to the
         # eviction). Masked compute in place of the JAX lax.cond: the exact
         # full sweep runs too and is taken when candidates overflow.
         newest = torch.argsort(
             torch.where(kfs.valid, -kfs.frame_index, torch.full_like(kfs.frame_index, 1 << 30)),
             stable=True,
-        )[:1]
+        )[:max(cfg.local_ba_window, 1)]
         cand = (evicted_obs | m.observed_by_any(newest)) & m.valid
         Cb = min(P, cfg.cull_budget)
         csel, csel_ok = m.ba_point_selection_mask(cand, Cb)
@@ -278,9 +312,11 @@ def slam_step(
     cam: Camera,
     cfg: SlamConfig,
     frontend,
+    commit_no: int | None = None,
 ) -> tuple[SlamState, StepInfo]:
     """One tracking step. `img` is an [H, W] uint8 or float32 frame on the
-    state's device. Makes exactly one host read (is_kf + inlier count)."""
+    state's device. Makes exactly one host read (is_kf + inlier count).
+    `commit_no`: see _commit_keyframe."""
     P = cfg.map_capacity
     if img.dtype == torch.uint8:
         img = img.to(torch.float32) * (1.0 / 255.0)
@@ -303,7 +339,8 @@ def slam_step(
     K = feat.xy.shape[0]
     no_kp_matched = torch.zeros((K,), dtype=torch.bool, device=img.device)
     no_pt_matched = torch.zeros((P,), dtype=torch.bool, device=img.device)
-    match_kw = dict(max_distance=frontend.max_distance, radius_px=cfg.match_radius_px)
+    match_kw = dict(max_distance=frontend.max_distance, radius_px=cfg.match_radius_px,
+                    backend=cfg.matching_backend)
 
     # Match the last keyframe's points, then optimise the pose.
     filt = state.map.observed_by(last_slot) & state.map.valid
@@ -352,7 +389,7 @@ def slam_step(
     is_kf_h, n_inl_h = torch.stack([is_kf.to(I64), n_inliers]).tolist()
     if is_kf_h:
         state = _commit_keyframe(state, img, feat, rvec, t, matches, cam=cam, cfg=cfg,
-                                 matcher=frontend.matcher)
+                                 matcher=frontend.matcher, commit_no=commit_no)
     state = state._replace(frame_count=state.frame_count + 1)
 
     every = cfg.reproj_monitor_every
@@ -374,6 +411,8 @@ def slam_step(
         n_keyframes=state.num_kf,
         reproj_error_px=state.reproj_px,
         n_inliers=int(n_inl_h),
+        band_fallbacks=None if mm1.fell_back is None
+        else mm1.fell_back.to(I64) + mm2.fell_back.to(I64),
     )
     return state, info
 
@@ -537,6 +576,12 @@ class Slam:
         self._prefetched = None
         self._pushback: list[np.ndarray] = []
         self.reset_state()
+        # Periodic whole-map refinement (refine_every_frames): frames since
+        # the last one, and each run's final cost as a device tensor (read
+        # only by callers).
+        self._frames_since_refine = 0
+        self.refine_costs: list[torch.Tensor] = []
+        self._band_fallbacks = torch.zeros((), dtype=I64, device=self.device)
         self.infos: list = []
         self.batch_infos: list = []
         self._lost_streak = 0
@@ -612,6 +657,9 @@ class Slam:
             K=K, D=self.frontend.descriptor_dim, A=self.cfg.archive_capacity,
             device=self.device,
         )
+        # Keyframes written since the bootstrap (arch_count + num_kf), kept
+        # on the host from the is_kf each step reads anyway.
+        self._commit_no = 0
 
     def reset_run(self, video) -> None:
         """Reset world state AND driver bookkeeping for a fresh run."""
@@ -621,6 +669,9 @@ class Slam:
         self._prefetched = None
         self._pushback = []
         self._gen.manual_seed(self._seed)
+        self._frames_since_refine = 0
+        self.refine_costs = []
+        self._band_fallbacks = torch.zeros((), dtype=I64, device=self.device)
         self._lost_streak = 0
         self._frames_since_check = 0
         self._pending_info = None
@@ -662,14 +713,58 @@ class Slam:
                 self.state, ref_feat, query_feat, ref_img, att.pose, att.match_train,
                 att.match_valid, ref_index, self._frame_idx - 1, cam=self.cam, cfg=self.cfg,
             )
+            self._commit_no = 2
             return True
 
     def _track(self, img: torch.Tensor) -> StepInfo:
         self.state, info = slam_step(self.state, img, self._mask, cam=self.cam, cfg=self.cfg,
-                                     frontend=self.frontend)
+                                     frontend=self.frontend, commit_no=self._commit_no)
+        self._commit_no += info.is_keyframe
+        if info.band_fallbacks is not None:
+            self._band_fallbacks += info.band_fallbacks
         self.host_syncs["track"] += 1
         self.frames_tracked += 1
         return info
+
+    def banded_fallbacks(self) -> int:
+        """Calls of the banded matcher since the run began whose band did
+        not fit, so that the dense kernel did the search (a host read)."""
+        return int(self._band_fallbacks)
+
+    def _refine(self) -> None:
+        """Whole-map refinement: full BA over the live map compacted to
+        `refine_budget` points (or all of it when 0), the two oldest
+        keyframes as gauge anchors, then the full 3 px cull (the commit
+        cull only re-checks the points a commit touched)."""
+        cfg, cam = self.cfg, self.cam
+        state = self.state
+        if cfg.refine_budget:
+            prob, sel, sel_ok = build_global_problem_compact(
+                state, min(cfg.map_capacity, cfg.refine_budget))
+        else:
+            prob = build_global_problem(state)
+        res = full_ba(cam, prob, max_iters=cfg.refine_iters, huber_delta=_huber(cfg, cam))
+        if cfg.refine_budget:
+            state = apply_refinement_compact(state, res, sel, sel_ok)
+        else:
+            state = apply_refinement(state, res)
+        if cfg.cull_points:
+            err, has_obs = point_reprojection_errors(cam, state.map, state.kfs)
+            remove = state.map.valid & has_obs & (err > cfg.cull_reproj_px)
+            m, kfs = remove_points(state.map, state.kfs, remove)
+            state = state._replace(map=m, kfs=kfs)
+        self.state = state
+        self.refine_costs.append(res.cost)
+
+    def _maybe_refine(self, n_frames: int) -> None:
+        """Refine once `refine_every_frames` frames have accumulated."""
+        if not self.cfg.refine_every_frames:
+            return
+        self._frames_since_refine += n_frames
+        if self._frames_since_refine < self.cfg.refine_every_frames:
+            return
+        self._frames_since_refine = 0
+        self._refine()
 
     def step(self) -> StepInfo | None:
         """Process one frame. Returns None at EOF."""
@@ -680,6 +775,7 @@ class Slam:
             info = self._track(img)
             self._prefetched = self._decode_next()
             self.infos.append(info)
+            self._maybe_refine(1)
             if not self.cfg.reinit_on_lost:
                 return info
             self._frames_since_check += 1
@@ -735,8 +831,11 @@ class Slam:
         Loss detection runs once per batch on the PREVIOUS batch's inlier
         counts, with the JAX driver's semantics (and the same speculative
         check of the current batch when the previous one ends starved); on
-        recovery, prefetched frames are pushed back to the stream. Returns
-        the number of frames processed.
+        recovery, prefetched frames are pushed back to the stream. Batches
+        never cross a refinement boundary: the refinement runs after exactly
+        `refine_every_frames` frames, before that batch's loss check, and
+        once more at the end if frames accumulated since the last one.
+        Returns the number of frames processed.
         """
         if self._prefetched is not None:
             raise RuntimeError("do not mix step() and run_batched()")
@@ -744,8 +843,11 @@ class Slam:
         total = 0
         prev_infos: list | None = None
 
-        def want(total_sim: int) -> int:
-            return batch if max_frames is None else min(batch, max_frames - total_sim)
+        every = self.cfg.refine_every_frames
+
+        def want(total_sim: int, since_sim: int) -> int:
+            n = batch if max_frames is None else min(batch, max_frames - total_sim)
+            return min(n, max(1, every - since_sim)) if every else n
 
         def prep(n_want: int):
             frames = self._decode_batch(n_want)
@@ -762,7 +864,7 @@ class Slam:
                 self._frame_idx -= len(res[1])
 
         ex = ThreadPoolExecutor(max_workers=1)
-        fut = ex.submit(prep, want(total))
+        fut = ex.submit(prep, want(total, self._frames_since_refine))
         try:
             while max_frames is None or total < max_frames:
                 res = fut.result()
@@ -771,11 +873,17 @@ class Slam:
                     break
                 imgs, raw = res
                 n = len(raw)
+                # The next batch's size follows from the refine cadence
+                # and the frame budget; prepare it while this one runs.
+                since_sim = self._frames_since_refine + n
+                if every and since_sim >= every:
+                    since_sim = 0
                 if max_frames is None or total + n < max_frames:
-                    fut = ex.submit(prep, want(total + n))
+                    fut = ex.submit(prep, want(total + n, since_sim))
                 infos = [self._track(imgs[i]) for i in range(n)]
                 self.batch_infos.append(infos)
                 total += n
+                self._maybe_refine(n)
                 if not self.cfg.reinit_on_lost:
                     continue
                 lost = prev_infos is not None and self._batch_lost(prev_infos)
@@ -790,12 +898,17 @@ class Slam:
                     fut = None
                     self._recover_lost()
                     prev_infos = None
-                    fut = ex.submit(prep, want(total))
+                    fut = ex.submit(prep, want(total, self._frames_since_refine))
                     continue
                 prev_infos = None if speculated else infos
         finally:
             push_back(fut)
             ex.shutdown()
+        # Callers read the state right after the run: refine what
+        # accumulated since the last refinement.
+        if every and self._frames_since_refine > 0:
+            self._frames_since_refine = 0
+            self._refine()
         return total
 
     def _batch_lost(self, infos: list) -> bool:
@@ -813,7 +926,7 @@ class Slam:
     def _recover_lost(self) -> None:
         """Archive the segment and re-bootstrap; if the stream ends before a
         bootstrap completes, restore the archived world state."""
-        backup = self.state
+        backup, backup_commit_no = self.state, self._commit_no
         self.segments.append(dict(
             poses=self.poses(include_archived=True),
             frame_indices=self.keyframe_indices(include_archived=True),
@@ -822,7 +935,7 @@ class Slam:
         self.reset_state()
         self.n_reinits += 1
         if not self.initialize():
-            self.state = backup
+            self.state, self._commit_no = backup, backup_commit_no
             self.segments.pop()
             self.n_reinits -= 1
             self.eof_on_reinit = True

@@ -20,6 +20,7 @@ from racing_slam_tpu_torch.ops.kernels import _build
 from racing_slam_tpu_torch.ops.kernels import attention as k6
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
+from racing_slam_tpu_torch.ops.kernels import match_banded as k5
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
 from racing_slam_tpu_torch.ops.kernels import structure_ba as k4
 
@@ -34,6 +35,8 @@ SLICE_MODULES = [
     "racing_slam_tpu_torch.ops.triangulation", "racing_slam_tpu_torch.ops.essential",
     "racing_slam_tpu_torch.ops.ransac", "racing_slam_tpu_torch.ops.kernels._build",
     "racing_slam_tpu_torch.ops.kernels.frontend", "racing_slam_tpu_torch.ops.kernels.match",
+    "racing_slam_tpu_torch.ops.kernels.match_banded", "racing_slam_tpu_torch.parallel",
+    "racing_slam_tpu_torch.parallel.refine",
     "racing_slam_tpu_torch.ops.kernels.motion_ba",
     "racing_slam_tpu_torch.ops.kernels.structure_ba", "racing_slam_tpu_torch.ops.kernels.attention",
     "racing_slam_tpu_torch.models", "racing_slam_tpu_torch.models.lightglue",
@@ -84,6 +87,12 @@ CASES = {
                     _meta((128, 8, 2)), _meta((128, 8), torch.bool), _meta((128,), torch.bool),
                     _meta((), torch.int64)),
            dict(fx=480.0, cx=320.0, cy=240.0, max_iters=10, huber_delta=0.005)),
+    "K5": (k5, "guided_match_stage1_banded", "guided_match_stage1_banded_reference",
+           "slam_guided_match_banded",
+           lambda: (_meta((512, 2)), _meta((512,), torch.bool),
+                    _meta((512, 8, 128), torch.bfloat16), _meta((512, 8), torch.bool), _meta((1024, 2)), _meta((1024, 128)),
+                    _meta((1024,), torch.bool), _meta((2,), torch.int32),
+                    _meta((), torch.int32)), dict(radius_px=28.0)),
     "K6": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha",
            lambda: (_meta((64, 4, 32)), _meta((96, 4, 32)), _meta((96, 4, 32)),
                     _meta((96,), torch.bool)), {}),

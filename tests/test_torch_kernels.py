@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from racing_slam_tpu_torch.ops import matching
 from racing_slam_tpu_torch.ops.kernels import attention as k6
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
+from racing_slam_tpu_torch.ops.kernels import match_banded as k5
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
 from racing_slam_tpu_torch.ops.kernels import structure_ba as k4
 
@@ -81,6 +83,79 @@ def test_k2_kernel_matches_twin(cuda, O, D, K):
     none = rd >= 1e9
     np.testing.assert_array_equal(bk[none], 0)
     np.testing.assert_array_equal(bd[none], 1e9)
+
+
+def _match_inputs(rng, P, O, D, K, point_rows=480.0):
+    """Keypoints over a 640 x 480 frame, points near keypoints in rows
+    y < `point_rows`, unit descriptors, planted exact ties (keypoint 2i+1
+    duplicates 2i)."""
+    kp_uv = np.stack([rng.uniform(0, 640, K), rng.uniform(0, 480, K)], -1).astype(np.float32)
+    kp = rng.standard_normal((K, D)).astype(np.float32)
+    kp /= np.linalg.norm(kp, axis=-1, keepdims=True)
+    for i in range(0, 40, 2):
+        kp[i + 1], kp_uv[i + 1] = kp[i], kp_uv[i] + 0.5
+    src = rng.choice(np.nonzero(kp_uv[:, 1] < point_rows)[0], P)
+    obs = kp[src][:, None] + 0.2 * rng.standard_normal((P, O, D)).astype(np.float32)
+    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
+    uv_p = (kp_uv[src] + rng.uniform(-5, 5, (P, 2))).astype(np.float32)
+    return (uv_p, rng.uniform(size=P) < 0.8, obs, rng.uniform(size=(P, O)) < 0.7, kp_uv, kp,
+            rng.uniform(size=K) < 0.9)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_k5_kernel_matches_twin(cuda, D):
+    """K5 on sorted inputs with bands chosen per point tile and one inactive
+    tile; tolerances as K2's."""
+    rng = np.random.default_rng(5)
+    tile_p, tile_k, band, P, K = 256, 512, 2, 1024, 2560
+    uv_p, gate, obs, ov, kp_uv, kp, kp_ok = _match_inputs(rng, P, 8, D, K)
+    gate[-tile_p:] = False
+    ko = np.argsort(np.where(kp_ok, kp_uv[:, 1], 1e8), kind="stable")
+    kp_uv, kp, kp_ok = kp_uv[ko], kp[ko], kp_ok[ko]
+    po = np.argsort(np.where(gate, uv_p[:, 1], 1e8), kind="stable")
+    uv_p, gate, obs, ov = uv_p[po], gate[po], obs[po], ov[po]
+    mid = np.searchsorted(np.where(kp_ok, kp_uv[:, 1], 1e8),
+                          uv_p[:, 1].reshape(-1, tile_p).mean(1)) // tile_k
+    starts = np.clip(mid - 1, 0, K // tile_k - band).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        uv_p, gate, obs, ov, kp_uv, kp, kp_ok, starts)]
+    args[2] = args[2].to(torch.bfloat16)
+    args.append(torch.tensor(3, dtype=torch.int32, device=cuda))
+    bk, bd = [t.cpu().numpy() for t in k5.guided_match_stage1_banded(*args, radius_px=20.0)]
+    rk, rd = [t.cpu().numpy() for t in k5.guided_match_stage1_banded_reference(*args,
+                                                                            radius_px=20.0)]
+    assert (rd < 1e9).sum() > 300
+    same = bk == rk
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(bd[same], rd[same], atol=1e-5)
+    none = rd >= 1e9
+    assert none[-tile_p:].all()
+    np.testing.assert_array_equal(bk[none], 0)
+    np.testing.assert_array_equal(bd[none], 1e9)
+
+
+@pytest.mark.parametrize("P,point_rows,fits", [(300, 480.0, False), (1200, 40.0, True)])
+def test_banded_stage1_falls_back_on_the_device(cuda, P, point_rows, fits):
+    """The banded stage 1 (K5 + K2 with its skip flag) against K2's twin,
+    K=2400: one tile of points over the whole frame needs all five keypoint
+    tiles, so K2 does the search; points in a 40-row strip fit their bands
+    and K5 does."""
+    rng = np.random.default_rng(8)
+    args = [torch.from_numpy(a).to(cuda) for a in _match_inputs(rng, P, 8, 128, 2400,
+                                                                 point_rows)]
+    args[2] = args[2].to(torch.bfloat16)
+    bk, bd, fell_back = matching._banded_stage1(*args, radius_px=20.0)
+    rk, rd = k2.guided_match_stage1_reference(*args, radius_px=20.0)
+    assert bool(fell_back) != fits
+    bk, bd, rk, rd = [t.cpu().numpy() for t in (bk, bd, rk, rd)]
+    hit = rd < 1e9
+    assert hit.sum() > P // 2
+    np.testing.assert_array_equal(bd >= 1e9, ~hit)
+    # Unmatched points carry no keypoint (the banded path maps sorted index
+    # 0 back to the first y-sorted keypoint, as the JAX package does).
+    same = bk[hit] == rk[hit]
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(bd[hit][same], rd[hit][same], atol=1e-5)
 
 
 def _rot(w):

@@ -9,15 +9,20 @@ go to the lowest index on both sides, with no tolerance.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from racing_slam_tpu.ops.matching import match_frames as jax_match_frames
 from racing_slam_tpu.ops.matching import match_map_to_frame as jax_map_match
 from racing_slam_tpu.ops.matching import unmatched_mask as jax_unmatched
-from racing_slam_tpu.ops.pallas.match_kernel import guided_match_stage1
+from racing_slam_tpu.ops.pallas.match_kernel import (
+    guided_match_stage1,
+    guided_match_stage1_banded,
+)
 from racing_slam_tpu_torch.ops import matching as tm
 from racing_slam_tpu_torch.ops.camera import Camera
 from racing_slam_tpu_torch.ops.kernels.match import guided_match_stage1_reference
+from racing_slam_tpu_torch.ops.kernels.match_banded import guided_match_stage1_banded_reference
 from tests.test_map_matching import _setup
 
 torch.set_num_threads(2)
@@ -112,3 +117,106 @@ def test_match_frames_and_unmatched_mask_match_jax(rng):
         tm.unmatched_mask(got, torch.from_numpy(m1), torch.from_numpy(m2)).numpy()[ok],
         np.asarray(jax_unmatched(want, jnp.asarray(m1), jnp.asarray(m2)))[ok],
     )
+
+
+# ---------------------------------------------------------------------------
+# The scale path: kernel K5's twin and the banded matcher
+# ---------------------------------------------------------------------------
+
+
+def _banded_inputs(rng, P=256, O=4, D=64, K=512, tile_p=64, tile_k=128, band=2):
+    """Sorted inputs as the banded matcher hands them to K5: points gated
+    first by ascending y (the last tile ungated), keypoints by ascending y,
+    each point tile's band chosen around its y-range, with planted exact
+    ties (keypoint 2i+1 duplicates 2i, half a pixel away)."""
+    uv_p, gate, obs, obs_valid, kp_uv, kp_desc, kp_ok = _stage1_inputs(rng, P, O, D, K)
+    gate[:] = True
+    gate[-tile_p:] = False  # one inactive tile
+    kp_order = np.argsort(np.where(kp_ok, kp_uv[:, 1], 1e8), kind="stable")
+    kp_uv, kp_desc, kp_ok = kp_uv[kp_order], kp_desc[kp_order], kp_ok[kp_order]
+    p_order = np.argsort(np.where(gate, uv_p[:, 1], 1e8), kind="stable")
+    uv_p, gate, obs, obs_valid = uv_p[p_order], gate[p_order], obs[p_order], obs_valid[p_order]
+    n_k = K // tile_k
+    mid = np.searchsorted(np.where(kp_ok, kp_uv[:, 1], 1e8),
+                          uv_p[:, 1].reshape(-1, tile_p).mean(1)) // tile_k
+    starts = np.clip(mid - band // 2, 0, n_k - band).astype(np.int32)
+    n_act = np.int32(-(-gate.sum() // tile_p))
+    return (uv_p, gate, obs, obs_valid, kp_uv, kp_desc, kp_ok, starts, n_act)
+
+
+def test_k5_twin_matches_pallas_interpret(rng):
+    """Tolerance as K2's (module docstring): >= 99 % of the points pick the
+    same sorted keypoint, distances to 1e-5 where they do; planted ties to
+    the lower sorted index, inactive tiles and ungated points (0, 1e9)
+    exactly."""
+    tiles = dict(tile_p=64, tile_k=128, band_tiles=2)
+    args = _banded_inputs(rng)
+    bk, bd = guided_match_stage1_banded_reference(*[torch.from_numpy(np.asarray(a)) for a in args],
+                                                  radius_px=20.0, **tiles)
+    jk, jd = guided_match_stage1_banded(*[jnp.asarray(a) for a in args], radius_px=20.0,
+                                        interpret=True, **tiles)
+    bk, bd, jk, jd = bk.numpy(), bd.numpy(), np.asarray(jk), np.asarray(jd)
+    assert (jd < 1e9).sum() > 100
+    same = bk == jk
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(bd[same], jd[same], atol=1e-5)
+    kp_desc = args[5]
+    dup = np.nonzero((kp_desc[1:] == kp_desc[:-1]).all(-1))[0]  # lower index of each tie
+    ties = np.isin(jk, dup) & (jd < 1e9)
+    assert ties.sum() > 0
+    np.testing.assert_array_equal(bk[ties], jk[ties])
+    none = jd >= 1e9
+    assert none[-64:].all()
+    np.testing.assert_array_equal(bk[none], 0)
+    np.testing.assert_array_equal(bd[none], 1e9)
+
+
+def _map_args(rng, P=300, K=1100, point_mask=None, kp_m=None, pt_m=None, grow_to=None):
+    cam, pose, X, kp_uv, kp_desc, obs_desc, obs_valid = _setup(rng, P=P, K=K, D=32, O=3)
+    if grow_to:
+        # Map slots P..grow_to-1 sit behind the camera: valid, never gated.
+        n = grow_to - P
+        X = np.concatenate([X, rng.normal(0, 2, (n, 3)).astype(np.float32) * [1, 1, -1]
+                            - [0, 0, 5]]).astype(np.float32)
+        obs_desc = np.concatenate([obs_desc, rng.standard_normal((n, 3, 32)).astype(np.float32)])
+        obs_valid = np.concatenate([obs_valid, np.ones((n, 3), bool)])
+        P = grow_to
+    ones_p, ones_k = np.ones(P, bool), np.ones(K, bool)
+    return (cam, pose, X, ones_p if point_mask is None else point_mask, obs_desc, obs_valid,
+            kp_uv, kp_desc, ones_k, np.zeros(K, bool) if kp_m is None else kp_m,
+            np.zeros(P, bool) if pt_m is None else pt_m)
+
+
+@pytest.mark.parametrize("case", ["full_gate", "partial_gate", "prefix_cap", "band_too_wide"])
+def test_banded_map_to_frame_matches_jax(rng, case):
+    """The port's backend="banded" against the JAX package's (Pallas in
+    interpret mode), in the three cases of tests/test_map_matching.py:160-261
+    and one where a tile's band needs more than two keypoint tiles
+    (K=2400), so the dense kernel answers. Validity and point choice agree
+    on >= 99 % of the keypoints (a near-tie may flip), distances to 1e-4;
+    the port reports the fallback exactly when the band does not fit."""
+    kw = {}
+    if case == "partial_gate":
+        kw = dict(point_mask=rng.random(300) < 0.3, kp_m=rng.random(1100) < 0.2,
+                  pt_m=rng.random(300) < 0.1)
+    elif case == "prefix_cap":
+        kw = dict(P=500, grow_to=8192)
+    elif case == "band_too_wide":
+        kw = dict(K=2400)
+    args = _map_args(rng, **kw)
+    cam = args[0]
+    want = jax_map_match(cam, *[jnp.asarray(a) for a in args[1:]], max_distance=0.8, chunk=32,
+                         backend="banded")
+    tk = [torch.from_numpy(np.asarray(a)) for a in args[1:]]
+    tk[3] = tk[3].to(torch.bfloat16)  # the state's obs_desc cache is bf16
+    got = tm.match_map_to_frame(Camera(*cam), *tk, max_distance=0.8, backend="banded")
+    assert bool(got.fell_back) == (case == "band_too_wide")
+    wv, gv = np.asarray(want.valid), got.valid.numpy()
+    assert (wv == gv).mean() >= 0.99 and wv.sum() > 40
+    both = wv & gv
+    assert (np.asarray(want.point_idx)[both] == got.point_idx.numpy()[both]).mean() >= 0.99
+    np.testing.assert_allclose(got.distance.numpy()[both], np.asarray(want.distance)[both],
+                               atol=1e-4)
+    dense = tm.match_map_to_frame(Camera(*cam), *tk, max_distance=0.8)
+    assert dense.fell_back is None
+    assert (dense.valid.numpy() == gv).mean() >= 0.99

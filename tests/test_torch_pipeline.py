@@ -11,8 +11,13 @@ synthetic sequence (320x240, 16 frames).
 (b) The slice as a whole: Slam.initialize() + run_batched() tracks with
     ATE < 8 % of the trajectory length and >= 4 keyframes, the bound of
     tests/test_pipeline.py:58-61.
-(c) Configuration values of later slices raise NotImplementedError, and
-    Slam without a card raises unless given device="cpu".
+(c) The scale path and the headline configuration: a forced commit with
+    the window BA (local_ba_window=4) against the JAX package's, and a run
+    with window BA, periodic refinement and the banded matcher within (b)'s
+    bound.
+(d) Configuration values of later slices raise NotImplementedError, the
+    values this slice brought are accepted, and Slam without a card raises
+    unless given device="cpu".
 """
 
 import dataclasses
@@ -87,10 +92,18 @@ def test_one_step_matches_jax(seq, jax_run):
     assert abs(tinfo.n_inliers - int(jinfo.n_inliers)) <= 0.02 * int(jinfo.n_inliers)
 
 
-def test_forced_commit_matches_jax(seq, jax_run):
+@pytest.mark.parametrize("window,every", [(1, 1), (4, 1), (4, 2), (4, 3)])
+def test_forced_commit_matches_jax(seq, jax_run, window, every):
     """_commit_keyframe on both sides from identical inputs: the JAX
     state, the JAX frontend's features of the next frame, the last pose
-    and the map->frame matches there."""
+    and the map->frame matches there. With window=4 the commit solves the
+    window BA (the bench headline's local_ba_window) and culls over the
+    four newest keyframes; with every > 1 (the hybrid cadence) the port
+    takes the commit number from the host (the JAX package reads
+    arch_count + num_kf on the device), and the two cadences of this state
+    take one branch each."""
+    cfg = dataclasses.replace(CFG, local_ba_window=window, window_ba_every=every)
+    jcfg = JaxSlamConfig(**dataclasses.asdict(cfg))
     jcam, slam = jax_run
     st = slam.state
     img = _u8(seq.frames[int(st.frame_count)])
@@ -108,14 +121,20 @@ def test_forced_commit_matches_jax(seq, jax_run):
     )
     matches = jnp.where(mm.valid, mm.point_idx, -1)
     st = st._replace(last_feat=feat, last_matches=matches)
-    commit = jax.jit(partial(jp._commit_keyframe, cam=jcam, cfg=JAX_CFG,
+    commit = jax.jit(partial(jp._commit_keyframe, cam=jcam, cfg=jcfg,
                              matcher=slam.frontend.matcher))
     want = commit(st, imgf, feat, st.last_rvec, st.last_t, matches)
 
     tst = state_from_numpy(jax.tree.map(np.asarray, st))
-    got = tp._commit_keyframe(tst, torch.from_numpy(np.array(imgf)), tst.last_feat,
-                              tst.last_rvec, tst.last_t, tst.last_matches, cam=Camera(*seq.cam),
-                              cfg=CFG, matcher=ClassicalFrontend().matcher)
+    port_commit = partial(tp._commit_keyframe, tst, torch.from_numpy(np.array(imgf)),
+                          tst.last_feat, tst.last_rvec, tst.last_t, tst.last_matches,
+                          cam=Camera(*seq.cam), cfg=cfg, matcher=ClassicalFrontend().matcher)
+    n = int(st.arch_count + st.num_kf)
+    assert (n % 2 == 0) != (n % 3 == 0), n  # every=2 and every=3 take different branches
+    if every > 1:
+        with pytest.raises(ValueError, match="commit_no"):
+            port_commit()
+    got = port_commit(commit_no=n)
     g, w = state_to_numpy(got), want
     for name in ("num_kf", "last_kf_slot", "arch_count"):
         np.testing.assert_array_equal(getattr(g, name), np.asarray(getattr(w, name)))
@@ -166,14 +185,61 @@ def test_run_batched_matches_per_frame_stepping(seq):
     np.testing.assert_array_equal(a.points(), b.points())
 
 
+def test_scale_path_tracks_the_sequence(seq):
+    """Window BA (W=4), refinement every 5 frames and the banded matcher on
+    (b)'s sequence: the same bound, a refinement at every 5 frames plus the
+    closing one, one host read per tracked frame, and the fallback count
+    read once at the end."""
+    cfg = SlamConfig(triangulate_points=True, bundle_adjust=True, optimize_pose=True,
+                     cull_points=True, max_keyframes=16, map_capacity=2048,
+                     pose_prediction="constant_velocity", local_ba_window=4,
+                     refine_every_frames=5, matching_backend="banded")
+    slam = tp.Slam(seq.cam, ArraySource(seq.frames), cfg, device="cpu")
+    assert slam.initialize()
+    n = slam.run_batched(batch=4)
+    ate, length, kf = _ate(slam, seq)
+    assert len(kf) >= 4
+    assert ate < 0.08 * length, f"ATE {ate} vs trajectory length {length}"
+    assert slam.reprojection_error() < 2.0
+    assert slam.host_syncs["track"] == n == slam.frames_tracked
+    assert len(slam.refine_costs) == n // 5 + (n % 5 > 0)
+    assert all(np.isfinite(float(c)) for c in slam.refine_costs)
+    assert 0 <= slam.banded_fallbacks() <= 2 * n
+
+
+def test_refine_cadence_is_independent_of_the_batch(seq):
+    """The refinement fires after exactly refine_every_frames frames,
+    whatever the batch: three batch sizes give the same keyframes, poses,
+    points and refinement count."""
+    cfg = dataclasses.replace(CFG, refine_every_frames=4, refine_iters=4)
+    runs = []
+    for batch in (1, 3, 16):
+        s = tp.Slam(seq.cam, ArraySource(seq.frames), cfg, device="cpu")
+        assert s.initialize()
+        s.run_batched(batch=batch)
+        runs.append(s)
+    for s in runs[1:]:
+        np.testing.assert_array_equal(runs[0].keyframe_indices(True), s.keyframe_indices(True))
+        np.testing.assert_allclose(runs[0].poses(True), s.poses(True), atol=1e-6)
+        np.testing.assert_array_equal(runs[0].points(), s.points())
+        assert len(s.refine_costs) == len(runs[0].refine_costs) >= 3
+
+
 @pytest.mark.parametrize("override", [
-    dict(local_ba_window=4), dict(refine_every_frames=48),
-    dict(matching_backend="banded"), dict(pose_prediction="adaptive"),
-    dict(essential_matrix_estimation=True),
+    dict(pose_prediction="adaptive"), dict(essential_matrix_estimation=True),
 ])
 def test_out_of_slice_config_raises(seq, override):
     with pytest.raises(NotImplementedError, match="slice"):
         tp.Slam(seq.cam, [], SlamConfig(**override))
+
+
+@pytest.mark.parametrize("override", [
+    dict(local_ba_window=4), dict(refine_every_frames=48), dict(matching_backend="banded"),
+])
+def test_scale_path_config_is_accepted(seq, override):
+    """The values slices 2 and 4 brought build a `Slam`."""
+    slam = tp.Slam(seq.cam, [], SlamConfig(**override), device="cpu")
+    assert slam.cfg == SlamConfig(**override) and slam.refine_costs == []
 
 
 def test_slam_without_a_card_raises(seq):
