@@ -46,10 +46,11 @@ SIGNATURES = {
     # pose0, kp_uv, xyz, valid, out, K, fx, cx, cy, lam0, huber, ftol, iters, stream
     "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,
-    # out, points_out, scratch, F, P, O, fx, cx, cy, lam0, huber, ftol, iters, stream
-    "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
-    # q, k, v, mask_k, out, Kq, Kk, H, dh, scale, stream
-    "slam_flash_mha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # out, points_out, scratch|NULL, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
+    # cluster, stream
+    "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    # q, k, v, mask_k, out, workspace, Kq, Kk, H, dh, chunks, scale, stream
+    "slam_flash_mha": [_P] * 6 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -125,6 +126,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            handle.slam_structure_ba_scratch_bytes.argtypes = [_I, _I, _I]
+            handle.slam_structure_ba_scratch_bytes.restype = ctypes.c_size_t
+            handle.slam_flash_mha_workspace_bytes.argtypes = [_I] * 5
+            handle.slam_flash_mha_workspace_bytes.restype = ctypes.c_size_t
             handle.slam_error_string.argtypes = [ctypes.c_int]
             handle.slam_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -9,14 +9,20 @@ camera; the free camera's Hcc, g_c; damped per-point inverses (zero for
 frozen points); the reduced 6x6 system and its solve; back-substitution;
 accept lambda/3 or reject lambda*2.5 with the function-tolerance exit.
 
-What bounds it on an H100: latency and one block's arithmetic. At the
-commit shape (Pc = 2432 points x O = 8 observations, F = 32 cameras) an
-iteration is ~20k observation updates and one 54-value reduction, so the
-grid-wide sum that S needs every iteration is the crux: one persistent
-block walks every point and reduces once, with no grid synchronisation,
-one launch per solve and no host read. Frozen rotations are expanded once
-per solve into a per-camera table in shared memory instead of being
-gathered per observation.
+What bounds it on an H100: latency. At the commit shape (Pc = 2432
+points x O = 8 observations, F = 32 cameras) an iteration is ~20k
+observation updates and two sums over all points (the 54 values of the
+reduced system, then the trial cost) that every point waits for. The
+kernel runs the whole solve as one thread-block cluster of `CLUSTER` CTAs
+(16, non-portable): each CTA keeps its share of the points' state and
+observations in shared memory (up to 1024 points a CTA at O = 8, P <=
+16384; beyond, in a global scratch buffer), and the sums go through
+distributed shared memory (each CTA's partials into its rank's slot in
+rank 0, one cluster barrier, every CTA sums the slots in rank order), so
+every CTA takes the same decisions and two runs give the same bits. One
+launch per solve, no atomics, no host read; two cluster barriers an
+iteration. A refused cluster launch raises; there is no other path on the
+card. 16 CTAs measured faster than 8 (PERF.md).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from ..ba import (
 from . import _build
 
 launches = 0
-SCRATCH_PER_POINT = 33  # csrc/structure_ba_kernel.cu
+CLUSTER = 16  # CTAs of the cluster; 8 is accepted by the kernel
 
 
 def structure_ba_lm_reference(
@@ -165,13 +171,15 @@ def structure_ba_lm(
     dev = points.device
     out = torch.empty((8,), dtype=torch.float32, device=dev)
     points_out = torch.empty((P, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty((max(P, 1) * SCRATCH_PER_POINT,), dtype=torch.float32, device=dev)
-    err = _build.lib().slam_structure_ba(
+    lib = _build.lib()
+    n_scratch = lib.slam_structure_ba_scratch_bytes(P, O, CLUSTER)
+    scratch = torch.empty((n_scratch // 4,), dtype=torch.float32, device=dev) if n_scratch else None
+    err = lib.slam_structure_ba(
         _build.ptr(cam_rvec), _build.ptr(cam_t), _build.ptr(free_slot), _build.ptr(points),
         _build.ptr(obs_cam), _build.ptr(obs_uv), _build.ptr(include), _build.ptr(point_free),
         _build.ptr(out), _build.ptr(points_out), _build.ptr(scratch), F, P, O, float(fx),
         float(cx), float(cy), float(init_lambda), float(huber_delta), float(ftol),
-        int(max_iters), _build.stream(dev),
+        int(max_iters), CLUSTER, _build.stream(dev),
     )
     _build.check(err, "structure_ba_lm")
     global launches

@@ -50,9 +50,9 @@ def _from(cls, tree, device):
     return cls(**vals)
 
 
-def state_from_numpy(tree, device="cpu") -> SlamState:
+def state_from_numpy(tree, device="cuda") -> SlamState:
     """JAX SlamState with numpy leaves -> the port's SlamState on `device`."""
-    return _from(SlamState, tree, torch.device(device))
+    return _from(SlamState, tree, resolve_device(device))
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -110,6 +110,9 @@ class FakeLib:
 
         setattr(self, entry, launcher)
         self.slam_error_string = lambda e: b"stub error"
+        # Buffer sizes the K4 and K6 wrappers ask for before a launch.
+        self.slam_structure_ba_scratch_bytes = lambda P, O, cluster: 0
+        self.slam_flash_mha_workspace_bytes = lambda Kq, Kk, H, dh, chunks: 1 << 20
 
 
 @pytest.fixture

@@ -223,6 +223,89 @@ def test_k4_kernel_matches_twin(cuda, frozen):
     np.testing.assert_array_equal(pts[:frozen], args[2].cpu().numpy()[:frozen])
 
 
+def _k4_problem(rng, P, F=64, O=8, frozen=0, free_slot=None):
+    """A commit problem at P points with F cameras, each point seen by the
+    O newest (the newest free unless `free_slot` says otherwise), 0.5 px
+    noise, 80 % of observations kept. The cameras step 0.4 units sideways
+    and the points lie 6-12 units deep, so every point's depth is well
+    determined: the twin against itself with its points reordered differs
+    by under 1e-4 here (the bench dolly's 0.05-unit steps leave depths so
+    weak that the twin reordered moves a few points by tenths of a unit)."""
+    fx, cx, cy = 480.0, 320.0, 240.0
+    rv = np.stack([[0.0, 0.01 * (f - F + 1), 0.0] for f in range(F)])
+    tv = np.stack([-np.array([0.4, 0.04, 0.1]) * (f - F + 1) for f in range(F)])
+    X = np.stack([rng.uniform(-4, 4, P), rng.uniform(-3, 3, P), rng.uniform(6, 12, P)], -1)
+    obs_cam = np.tile(F - 1 - np.arange(O), (P, 1))
+    obs_uv = np.zeros((P, O, 2))
+    for o in range(O):
+        Xc = X @ _rot(rv[F - 1 - o]).T + tv[F - 1 - o]
+        obs_uv[:, o] = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx, fx * Xc[:, 1] / Xc[:, 2] + cy], -1)
+    obs_uv += rng.normal(0, 0.5, obs_uv.shape)
+    include = rng.uniform(size=(P, O)) < 0.8
+    include[:, 0] = True
+    slot = F - 1 if free_slot is None else free_slot
+    rv0, tv0 = rv.copy(), tv.copy()
+    rv0[slot] += [0.004, -0.003, 0.002]
+    tv0[slot] += [0.03, -0.02, 0.04]
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    args = (f32(rv0), f32(tv0), f32(X + rng.normal(0, 0.02, X.shape)),
+            torch.from_numpy(obs_cam.astype(np.int64)), f32(obs_uv), torch.from_numpy(include),
+            torch.from_numpy(np.arange(P) >= frozen), torch.tensor(slot, dtype=torch.int64))
+    return args, dict(fx=fx, cx=cx, cy=cy, max_iters=10, huber_delta=float(np.sqrt(5.991)) / fx)
+
+
+@pytest.mark.parametrize("P,frozen,free_slot", [
+    (1, 0, 0),  # one point; the free camera sees nothing, so the point alone moves
+    (k4.CLUSTER - 1, 8, None),  # fewer points than CTAs (8 frozen anchor the camera)
+    (2433, 100, None),  # ragged: not a multiple of the cluster
+    (7296, 100, None),  # the 720p commit
+    (17000, 100, None),  # past 16384 points: the points' state in the global scratch
+    (600, 600, None),  # every point frozen: the camera alone moves
+])
+def test_k4_cluster_matches_twin_and_repeats_bit_for_bit(cuda, P, frozen, free_slot):
+    """K4 (one cluster of k4.CLUSTER CTAs) at F = 64 against its twin with
+    the function-tolerance exit off, to chip_smoke.py check_structure_ba's
+    tolerances (pose 1e-5 / 1e-4, cost 1 %, same iterations, median point
+    difference 1e-4, every point within 5e-2), frozen points untouched;
+    then a second run on the same inputs gives the same bits."""
+    args, kw = _k4_problem(np.random.default_rng(40 + P), P, frozen=frozen, free_slot=free_slot)
+    args = tuple(a.to(cuda) for a in args)
+    out, pts = k4.structure_ba_lm(*args, **kw, ftol=0.0)
+    out2, pts2 = k4.structure_ba_lm(*args, **kw, ftol=0.0)
+    ref, rpts = k4.structure_ba_lm_reference(*args, **kw, ftol=0.0)
+    assert torch.equal(out, out2) and torch.equal(pts, pts2), "K4 runs differ"
+    out, pts, ref, rpts = [t.cpu().numpy() for t in (out, pts, ref, rpts)]
+    np.testing.assert_allclose(out[:3], ref[:3], atol=1e-5)
+    np.testing.assert_allclose(out[3:6], ref[3:6], atol=1e-4)
+    assert abs(out[6] - ref[6]) <= 0.01 * ref[6] + 1e-10, (out[6], ref[6])
+    assert out[7] == ref[7], (out[7], ref[7])
+    perr = np.linalg.norm(pts - rpts, axis=-1)
+    assert np.median(perr) < 1e-4 and perr.max() < 5e-2, (np.median(perr), perr.max())
+    np.testing.assert_array_equal(pts[:frozen], args[2].cpu().numpy()[:frozen])
+
+
+@pytest.mark.parametrize("Kq,Kk,dh,valid,chunks", [
+    (2400, 130, 32, 0.8, None),  # fewer keys than one chunk of the default split
+    (2400, 130, 32, 0.8, 4),  # 3 key tiles in 4 chunks: the last all padding
+    (2400, 2400, 32, 0.8, 20),  # 40 tiles of which 38 hold keys: the last chunk all padding
+    (500, 700, 32, 0.0, None),  # every key masked: uniform through the combine
+    (300, 900, 16, 0.6, None),
+    (300, 900, 64, 0.6, None),
+])
+def test_k6_split_cases_match_twin(cuda, Kq, Kk, dh, valid, chunks):
+    """K6's split and combine (key chunks smaller than, equal to or past
+    the keys), to the 5 %-of-RMS limit against the unsplit twin."""
+    rng = np.random.default_rng(60 + Kk + dh)
+    H = 4
+    q, k, v = [torch.from_numpy(rng.normal(size=(n, H, dh)).astype(np.float32)).to(cuda)
+               for n in (Kq, Kk, Kk)]
+    mask = torch.from_numpy(rng.random(Kk) < valid).to(cuda)
+    got = k6.flash_mha(q, k, v, mask, chunks=chunks).cpu().numpy()
+    want = k6.flash_mha_reference(q, k, v, mask).cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=0.05 * np.sqrt(np.mean(want**2)), rtol=0)
+
+
 @pytest.mark.parametrize("Kq,Kk,dh,valid", [(2400, 2400, 32, 0.8), (300, 2333, 32, 0.8),
                                             (100, 333, 32, 0.0), (77, 130, 16, 0.5),
                                             (200, 200, 64, 1.0)])

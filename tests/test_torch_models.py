@@ -34,6 +34,7 @@ import torch
 from racing_slam_tpu.models import lightglue as jlg
 from racing_slam_tpu.models import superpoint as jsp
 from racing_slam_tpu.ops.pallas.attention_kernel import flash_mha as jax_flash_mha
+from racing_slam_tpu.slam import state as jstate
 from racing_slam_tpu_torch.models import lightglue as tlg
 from racing_slam_tpu_torch.models import superpoint as tsp
 from racing_slam_tpu_torch.ops.camera import Camera
@@ -43,6 +44,7 @@ from racing_slam_tpu_torch.slam.frontend import LightGlueMatcher
 from racing_slam_tpu_torch.slam.pipeline import Slam
 from racing_slam_tpu_torch.utils.convert import (
     lightglue_params_from_numpy,
+    state_from_numpy,
     superpoint_params_from_numpy,
 )
 from racing_slam_tpu_torch.utils.metrics import ate_rmse
@@ -98,6 +100,49 @@ def test_k6_card_tolerance_separates_rounding_from_a_dropped_tile(Kk, valid):
     assert float((tiles64 - want).abs().max()) <= 0.2 * limit
     n = (Kk - 1) // 64 * 64
     dropped = flash_mha_reference(q, k[:n], v[:n], mask[:n], tile_k=64)
+    assert float((dropped - want).abs().max()) >= 5 * limit
+
+
+@pytest.mark.parametrize("valid,chunks", [(0.8, 3), (0.0, 3), (0.8, 8)])
+def test_split_twin_matches_jax_kernel(valid, chunks):
+    """The twin at the CUDA kernel's 64-key tiles and split into `chunks`
+    key runs (8 runs of 64 at 333 keys: the last three hold only padding)
+    against the JAX kernel in interpret mode, within the card's limit of
+    5 % of the output RMS (chip_smoke.py check_attention)."""
+    rng = np.random.default_rng(6)
+    Kq, Kk, H, dh = 200, 333, 4, 32
+    q, k, v = [rng.normal(size=(n, H, dh)).astype(np.float32) for n in (Kq, Kk, Kk)]
+    mask = rng.random(Kk) < valid
+    want = np.asarray(jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    jnp.asarray(mask), interpret=True))
+    got = flash_mha_reference(_t(q), _t(k), _t(v), _t(mask), tile_k=64, chunks=chunks).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=0.05 * np.sqrt(np.mean(want**2)), rtol=0)
+    if valid == 0.0:  # uniform over the masked keys, through the combine
+        vb = _t(v).to(torch.bfloat16).float().numpy()
+        np.testing.assert_allclose(got, np.broadcast_to(vb.mean(0), got.shape), atol=1e-5)
+
+
+@pytest.mark.parametrize("Kk,valid,chunks", [(2400, 0.8, 4), (2400, 0.0, 4), (2333, 0.8, 4),
+                                             (2400, 0.8, 20)])
+def test_k6_card_tolerance_separates_the_split_from_a_dropped_chunk(Kk, valid, chunks):
+    """The kernel's split of the keys and its combine, modelled by the
+    twin, stay within half the card's limit of the unsplit twin (measured:
+    at most 0.22 of it); a combine that dropped the last chunk holding keys
+    exceeds the limit at least 5x. At 2400 keys in 20 chunks of 128 the
+    last chunk holds only padding."""
+    rng = np.random.default_rng(9)
+    Kq, H, dh = 600, 4, 32
+    q, k, v = [_t(rng.normal(size=(n, H, dh)).astype(np.float32)) for n in (Kq, Kk, Kk)]
+    mask = _t(rng.random(Kk) < valid)
+    want = flash_mha_reference(q, k, v, mask)
+    limit = 0.05 * float(want.pow(2).mean().sqrt())
+    split = flash_mha_reference(q, k, v, mask, tile_k=64, chunks=chunks)
+    assert float((split - want).abs().max()) <= 0.5 * limit
+    run = -(-Kk // (chunks * 64)) * 64
+    last = (Kk - 1) // run  # the last chunk that holds keys
+    dropped = flash_mha_reference(q, k[: last * run], v[: last * run], mask[: last * run],
+                                  tile_k=64, chunks=last)
     assert float((dropped - want).abs().max()) >= 5 * limit
 
 
@@ -311,10 +356,10 @@ def test_mismatched_lightglue_weights_raise():
 
 
 @pytest.mark.parametrize("entry", ["superpoint_frontend", "superpoint_load", "lightglue_load",
-                                   "lightglue_matcher"])
+                                   "lightglue_matcher", "state_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
-    """Without a card, the learned path's entry points raise unless given
-    device="cpu"; with device="cpu" they build."""
+    """Without a card, the learned path's entry points and the state
+    converter raise unless given device="cpu"; with device="cpu" they build."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     make = {
@@ -324,6 +369,8 @@ def test_entry_points_default_to_the_card(entry):
         "lightglue_load": lambda **kw: tlg.load_params(WEIGHTS / "lightglue.npz", **kw),
         "lightglue_matcher": lambda **kw: LightGlueMatcher(
             tlg.load_params(WEIGHTS / "lightglue.npz", device="cpu"), (320.0, 240.0), **kw),
+        "state_from_numpy": lambda **kw: state_from_numpy(jax.tree.map(
+            np.asarray, jstate.SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2)), **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

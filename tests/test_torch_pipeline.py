@@ -80,7 +80,7 @@ def test_one_step_matches_jax(seq, jax_run):
     i = int(st.frame_count)
     img = _u8(seq.frames[i])
     jst, jinfo = slam._step(st, jnp.asarray(img), jax.random.PRNGKey(0), None)
-    tst, tinfo = tp.slam_step(state_from_numpy(jax.tree.map(np.asarray, st)),
+    tst, tinfo = tp.slam_step(state_from_numpy(jax.tree.map(np.asarray, st), device="cpu"),
                               torch.from_numpy(img), None, cam=Camera(*seq.cam), cfg=CFG,
                               frontend=ClassicalFrontend())
     jm, tm = np.asarray(jst.last_matches), tst.last_matches.numpy()
@@ -125,7 +125,7 @@ def test_forced_commit_matches_jax(seq, jax_run, window, every):
                              matcher=slam.frontend.matcher))
     want = commit(st, imgf, feat, st.last_rvec, st.last_t, matches)
 
-    tst = state_from_numpy(jax.tree.map(np.asarray, st))
+    tst = state_from_numpy(jax.tree.map(np.asarray, st), device="cpu")
     port_commit = partial(tp._commit_keyframe, tst, torch.from_numpy(np.array(imgf)),
                           tst.last_feat, tst.last_rvec, tst.last_t, tst.last_matches,
                           cam=Camera(*seq.cam), cfg=cfg, matcher=ClassicalFrontend().matcher)

@@ -30,7 +30,7 @@ TCAM = Camera(*CAM)
 
 
 def _both(state):
-    return state, state_from_numpy(jax.tree.map(np.asarray, state))
+    return state, state_from_numpy(jax.tree.map(np.asarray, state), device="cpu")
 
 
 @pytest.mark.parametrize("valid,fidx", [
@@ -63,7 +63,7 @@ def test_global_problems_match_jax(rng, budget):
     obs_valid = np.asarray(m.obs_valid).copy()
     obs_valid[::5, 1] = False
     jst = jst._replace(map=m._replace(valid=jnp.asarray(valid), obs_valid=jnp.asarray(obs_valid)))
-    tst = state_from_numpy(jax.tree.map(np.asarray, jst))
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     if budget:
         want, wsel, wok = jr.build_global_problem_compact(jst, budget)
         got, gsel, gok = tr.build_global_problem_compact(tst, budget)
@@ -78,7 +78,7 @@ def test_global_problems_match_jax(rng, budget):
 def test_refinement_recovers_ground_truth_like_jax(rng, compact):
     """build -> full_ba -> apply on both sides (tests/test_refine.py:101-118)."""
     jst, gt_r, gt_t, gt_X = _gt_state(rng, noise=5e-3)
-    tst = state_from_numpy(jax.tree.map(np.asarray, jst))
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     P = gt_X.shape[0]
     if compact:
         jprob, jsel, jok = jr.build_global_problem_compact(jst, P)
@@ -111,7 +111,7 @@ def test_apply_refinement_matches_jax_on_given_solution(rng):
     points and the re-anchored tracking poses to float32 rounding."""
     jst, gt_r, gt_t, gt_X = _gt_state(rng, noise=5e-3)
     jst = jst._replace(prev_rvec=jst.last_rvec + 0.01, prev_t=jst.last_t - 0.05)
-    tst = state_from_numpy(jax.tree.map(np.asarray, jst))
+    tst = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     jres = JaxBAResult(cam_rvec=jnp.asarray(gt_r), cam_t=jnp.asarray(gt_t),
                       points=jnp.asarray(gt_X), cost=jnp.float32(0.0),
                       num_residuals=jnp.int32(0))

@@ -47,7 +47,7 @@ def _random_state(rng):
 
 def _both(rng):
     jst = _random_state(rng)
-    return jst, state_from_numpy(jax.tree.map(np.asarray, jst))
+    return jst, state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
 
 
 def _eq(got, want, atol=0.0):
@@ -67,7 +67,7 @@ def _eq_tree(got, want, atol=0.0):
 def test_converter_round_trip_is_exact(rng):
     jst = _random_state(rng)
     jst = jst._replace(obs_desc=jnp.asarray(rng.normal(size=(P, O, D)), jnp.bfloat16))
-    back = state_to_numpy(state_from_numpy(jax.tree.map(np.asarray, jst)))
+    back = state_to_numpy(state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu"))
     leaves_b, leaves_j = jax.tree.leaves(back), jax.tree.leaves(jst)
     assert len(leaves_b) == len(leaves_j)
     for b, j in zip(leaves_b, leaves_j):
