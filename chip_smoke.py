@@ -194,6 +194,38 @@ def _k2_data(rng, P: int, D: int, gate_rate: float):
     return uv_p, gate, obs, obs_valid, kp_uv, kp_desc, kp_ok
 
 
+def _k2_needed(uv_p, gate, obs_valid, kp_uv, kp_ok, passing, D: int, radius: float):
+    """What K2's result needs of this data: (bytes, pixel-gate tests).
+
+    Bytes: the point gates; of the gated points their positions,
+    observation flags and valid bf16 observation rows; the keypoint gates
+    and the gated keypoints' positions; the float32 descriptor rows of the
+    keypoints that pass with some gated point; the [P] outputs (index and
+    distance). Tests: the gated keypoints in the 3 x 3 cells of side
+    `radius` around each gated point (cells no smaller than the radius,
+    the fewest candidates a 3 x 3 cell search tests; a point farther off
+    the grid than one cell counts as one cell off)."""
+    P, O = obs_valid.shape
+    g = gate.astype(bool)
+    n_bytes = (P + int(g.sum()) * (8 + O) + int(obs_valid[g].sum()) * D * 2
+               + len(kp_ok) + int(kp_ok.sum()) * 8 + int(passing.any(0).sum()) * D * 4 + P * 8)
+    kuv = kp_uv[kp_ok.astype(bool)]
+    if len(kuv) == 0 or not g.any():
+        return n_bytes, 0
+    lo = kuv.min(0)
+    kc = np.floor((kuv - lo) / radius).astype(np.int64)
+    n = kc.max(0) + 1
+    counts = np.zeros(n + 2, np.int64)  # a ring of empty cells around the grid
+    np.add.at(counts, (kc[:, 0] + 1, kc[:, 1] + 1), 1)
+    box = np.zeros_like(counts)
+    padded = np.pad(counts, 1)
+    for du in range(3):
+        for dv in range(3):
+            box += padded[du:du + n[0] + 2, dv:dv + n[1] + 2]
+    pc = np.clip(np.floor((uv_p[g] - lo) / radius), -1, n).astype(np.int64) + 1
+    return n_bytes, int(box[pc[:, 0], pc[:, 1]].sum())
+
+
 def check_match(dev, D: int = 128) -> dict:
     """K2 at P=4096, O=8, K=2400 on a 640x480 frame, radius 28 px, with
     planted exact ties (duplicate keypoints within the radius); D=128 for
@@ -228,19 +260,18 @@ def check_match(dev, D: int = 128) -> dict:
     assert (bk[tie_pts] == rk[tie_pts]).all(), "K2 planted tie not resolved to the lower index"
     err = float(np.abs(bd[same] - rd[same]).max())
     assert err <= 1e-5, f"K2 D={D} distance error {err}"
-    log(f"K2 guided match D={D}: keypoint agreement {agree:.5f}, |d2| err {err:.3e}, "
-        f"gated points matched {(bd < 1e9).sum()}")
     ms = cuda_ms(lambda: k.guided_match_stage1(*args, radius_px=28.0))
     plain = cuda_ms(lambda: k.guided_match_stage1_reference(*args, radius_px=28.0), rounds=1)
-    # The work this data needs: a pixel-gate test per (point, keypoint)
-    # (~5 float32 operations) and, for the pairs that pass every gate, a
-    # D-long bf16 dot product (2D operations) per valid observation.
     d2 = ((uv_p[:, None, :] - kp_uv[None, :, :]) ** 2).sum(-1)
     passing = (d2 <= 28.0 ** 2) & gate[:, None] & kp_ok[None, :]
     dots = int((passing.sum(1) * obs_valid.sum(1)).sum())
+    n_bytes, tests = _k2_needed(uv_p, gate, obs_valid, kp_uv, kp_ok, passing, D, 28.0)
+    log(f"K2 guided match D={D}: keypoint agreement {agree:.5f}, |d2| err {err:.3e}, "
+        f"gated points matched {(bd < 1e9).sum()}; timed on {int(gate.sum())} gated points, "
+        f"{int(passing.sum())} passing pairs: {ms:.4f} ms")
     return dict(name="guided_match_stage1", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
                 library_ms=None,
-                **bound(nbytes(*args) + P * 8, {"f32": 5 * P * K, "bf16": 2 * D * dots}),
+                **bound(n_bytes, {"f32": 5 * tests, "bf16": 2 * D * dots}),
                 source="racing_slam_tpu_torch/csrc/match_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/match_kernel.py:115")
 
@@ -374,12 +405,20 @@ def check_motion_ba(dev) -> dict:
         f"iters {out[7]:.0f} vs {ref[7]:.0f}")
     ms = cuda_ms(lambda: k.motion_ba_lm(*args, **kw))
     plain = cuda_ms(lambda: k.motion_ba_lm_reference(*args, **kw), rounds=1)
+    # A solve that runs all 10 iterations (no tolerance exit) against one
+    # that stops after the first pass: the time of an iteration.
+    ms10 = cuda_ms(lambda: k.motion_ba_lm(*args, **{**kw, "ftol": 0.0}))
+    ms0 = cuda_ms(lambda: k.motion_ba_lm(*args, **{**kw, "ftol": 0.0, "max_iters": 0}))
+    log(f"K3 timed on {int(valid.sum())} valid rows of {K}: {ms:.4f} ms for {out[7]:.0f} "
+        f"iterations; all 10 iterations {ms10:.4f} ms, none {ms0:.4f} ms, "
+        f"{(ms10 - ms0) / 10:.5f} ms an iteration")
     # Per valid row and iteration: transform and project (~24), residual
     # and 2x6 Jacobian (~42), Huber weight (~5), 21 H + 6 g sums over two
     # rows (~108), trial cost (~30): ~210 float32 operations.
     ops = 210 * int(valid.sum()) * int(out[7])
     return dict(name="motion_ba_lm", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=None, **bound(nbytes(*args) + 8 * 4, {"f32": ops}),
+                library_ms=None, ms_10_iterations=ms10, ms_an_iteration=(ms10 - ms0) / 10,
+                **bound(nbytes(*args) + 8 * 4, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/motion_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/motion_ba_kernel.py:309")
 
@@ -893,6 +932,9 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
             "flash_mha": 8 * (n_commits + bootstraps)}  # 2 layers x 4 attention sites
     for name in needed:
         assert launches[name] >= want[name], f"{path}: {name} launched {launches[name]} < {want[name]}"
+    for name in ("guided_match_stage1", "motion_ba_lm"):  # one launch a call, two calls a frame
+        assert launches[name] == 2 * tracked, f"{path}: {name} launched {launches[name]} times " \
+                                              f"in {tracked} tracked frames"
     if cfg.refine_every_frames:
         assert res["refines"] >= n // cfg.refine_every_frames, res["refines"]
     if fallbacks is not None:
@@ -971,8 +1013,7 @@ def main() -> int:
                    launches_by_path=by_path)
         row.update({key: kern[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")})
-        if "d256" in kern:
-            row["d256"] = kern["d256"]
+        row.update({key: kern[key] for key in ("d256", "ms_an_iteration") if key in kern})
         table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,38 +8,125 @@
 // sums are float32, and the result is clamped at 0. Ties go to the lowest
 // keypoint index; a point with no passing pair gets (k = 0, d = 1e9).
 //
-// One warp per map point. A block stages a tile of keypoint positions and
-// gates in shared memory; each warp tests 32 keypoints per step against its
-// point's pixel gate and evaluates the descriptor distance only for the
-// pairs that pass (a ballot, walked in keypoint order so the running strict
-// minimum keeps the lowest index). The point's O bf16 observation
-// descriptors stay in registers, D/32 values per lane; the kernel is
-// instantiated for DPL = 4 (D <= 128, the classical path's descriptors) and
-// DPL = 8 (D <= 256, the learned path's SuperPoint descriptors), so the
-// 128-d path holds no zero padding. A pair's O dot products and the keypoint
-// norm are warp-shuffle reductions.
+// What bounds it on an H100: the gate, if it is a scan. At radius 28 px on
+// 640x480 about 19 of K = 2400 keypoints pass for each point, so a P x K
+// scan of positions is ~99 % waste, and the descriptor work that remains
+// (~50k pairs of 8 x D products) is a few microseconds of the card's issue
+// rate as float32 FMAs and far less on its tensor cores. The design:
+//
+// - One launch of persistent CTAs of 512 threads, one per SM (the
+//   registers of the descriptor stage allow no more, 128 a thread), so
+//   that an SM bins the keypoints once. Each CTA bins the frame's
+//   keypoints (those that pass the keypoint gate) into a cell grid in its
+//   shared memory: their extent by a block min / max, the grid by
+//   cell_grid below (tests/match_grid_model.py models it for the tests),
+//   per-cell counts by shared-memory atomics, a block prefix sum, and a
+//   scatter of (u, v) and the keypoint index into cell order. The cell
+//   side is at least the radius, so a point's disc lies in its 3 x 3
+//   cells; a point or keypoint outside the grid is clamped to an
+//   edge cell, which keeps that true. Each thread holds 8 keypoints in
+//   registers while binning, so a CTA bins up to 4096 keypoints at a time;
+//   a larger K is taken in chunks of 4096, the running best carried in the
+//   outputs.
+// - Each warp reads the gates of 32 of its map points at once and walks
+//   the gated ones. It tests only the candidates of the point's 3 x 3 cells
+//   (three contiguous runs of the cell-ordered arrays, one per cell row), 32
+//   at a time, by a ballot, and prefetches the passing keypoints'
+//   descriptor rows into L1.
+// - The pairs that pass every gate go to the tensor cores, 8 keypoints at a
+//   time: one mma.m16n8k16 (bf16 in, float32 sums) per 16 descriptor
+//   elements, with A = the point's 8 observations (rows 0-7) over the 8
+//   keypoints (rows 8-15) and B = the 8 keypoints. Rows 0-7 of the product
+//   are <o, k>; the diagonal of rows 8-15 is each keypoint's norm n_k. The
+//   keypoint rows are rounded to bf16 as they are loaded; the point's
+//   observation fragments and norms stay in registers for the point. A
+//   3-step min across the lanes of a column takes the minimum over
+//   observations. The tensor cores sum in a fixed order, so equal
+//   descriptors give equal distances wherever they sit in a batch.
+// - Candidates arrive in cell order, not index order, so the running best
+//   is lexicographic in (distance, keypoint index): the lowest index wins
+//   a tie, as in the dense scan.
 //
 // `skip` (may be null) is a device flag: when it is set, the call writes
 // (0, 1e9) everywhere and returns. The banded matcher launches this kernel
 // as its dense fallback with skip = "the band fit", so that the choice
 // between K5 and K2 is made on the device, without a host read. Only the
-// SKIP instance reads the flag; the dense path runs the instance without
-// it. Both choices are measured on an H100 on the classical path's own K2
-// inputs (tools/match_ab.py, PERF.md): reading the flag in every call made
-// this code 20 % slower, and a version holding the point in K5's
-// PointDescs (match_common.cuh) was 20 % slower too, so K2 keeps its
-// point's descriptors inline.
+// SKIP instance reads the flag; the dense path runs the instance without it.
 #include "match_common.cuh"
 
 namespace {
 
 using namespace slam_match;
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
-constexpr int KT = 256;  // keypoints staged per tile
+constexpr int KPT = 8;                  // keypoints a thread holds while binning
+constexpr int KC = KPT * THREADS;       // keypoints binned at a time
+constexpr int CAP = 64;                 // cells per side at most
+constexpr int CELL_INTS = CAP * CAP + 1;  // cell starts + the end sentinel
+constexpr int FIXED_BYTES = (CELL_INTS * 4 + 4 * WARPS * 4 + WARPS * 32 * 4 + 15) / 16 * 16;
+constexpr int SMEM_MAX = 232448;        // dynamic shared memory a block can use
 
-template <int DPL, bool SKIP>  // descriptor values per lane: D <= 32 * DPL
+struct Grid {
+  float lo_u, lo_v, side, inv_side;
+  int nx, ny;
+};
+
+// The cell grid over the keypoints' extent [lo, hi]: side at least the
+// radius (with a margin of 1/256 against float rounding) and at least the
+// extent over CAP, cells per side capped at CAP. tests/match_grid_model.py
+// is the same rule in numpy float32: change both together.
+__device__ __forceinline__ Grid cell_grid(float lo_u, float lo_v, float hi_u, float hi_v,
+                                          float radius) {
+  const float eu = hi_u - lo_u, ev = hi_v - lo_v;
+  const float side = fmaxf(fmaxf(radius * (1.0f + 1.0f / 256.0f), eu / CAP),
+                           fmaxf(ev / CAP, 1e-6f));
+  Grid g;
+  g.lo_u = lo_u;
+  g.lo_v = lo_v;
+  g.side = side;
+  g.inv_side = 1.0f / side;
+  g.nx = (int)fminf((float)CAP, floorf(eu / side) + 1.0f);
+  g.ny = (int)fminf((float)CAP, floorf(ev / side) + 1.0f);
+  return g;
+}
+
+// Cell coordinate of x, clamped to [0, n - 1] (NaN goes to 0).
+__device__ __forceinline__ int cell_of(float x, float lo, float inv_side, int n) {
+  return (int)fminf(fmaxf(floorf((x - lo) * inv_side), 0.0f), (float)(n - 1));
+}
+
+// Two float32 values rounded to a bf16 pair (x in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float2 x) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The squares of a bf16 pair, summed in float32.
+__device__ __forceinline__ float sq_bf16(uint32_t w) {
+  const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
+  return lo * lo + hi * hi;
+}
+
+// c += A B for one 16 x 8 x 16 tile: bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The lexicographic running best: (d, k) replaces (best, bk) if it is less.
+__device__ __forceinline__ void take_best(float d, int k, float& best, int& bk) {
+  if (k >= 0 && (d < best || (d == best && k < bk))) {
+    best = d;
+    bk = k;
+  }
+}
+
+template <int NCH, bool SKIP>  // 16-element descriptor chunks: D <= 16 * NCH
 __global__ void __launch_bounds__(THREADS)
 guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ gate_p,
                     const __nv_bfloat16* __restrict__ obs_desc,
@@ -47,127 +134,320 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
                     const float* __restrict__ kp_desc, const uint8_t* __restrict__ kp_ok,
                     const uint8_t* __restrict__ skip, int* __restrict__ best_k,
                     float* __restrict__ best_d, int P, int O, int D, int K, float radius_sq) {
-  __shared__ float s_u[KT];
-  __shared__ float s_v[KT];
-  __shared__ uint8_t s_ok[KT];
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_cell = reinterpret_cast<int*>(smem);                       // [CELL_INTS]
+  float* s_red = reinterpret_cast<float*>(s_cell + CELL_INTS);      // [4 * WARPS]
+  int* s_list = reinterpret_cast<int*>(s_red + 4 * WARPS);          // [WARPS][32]
+  const int kc = K < KC ? K : KC;
+  float2* s_kuv = reinterpret_cast<float2*>(smem + FIXED_BYTES);    // [kc], cell order
+  int* s_ki = reinterpret_cast<int*>(s_kuv + kc);                   // [kc]
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * WARPS + warp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gw = blockIdx.x * WARPS + warp, nw = gridDim.x * WARPS;
   if (SKIP && *skip != 0) {
-    if (p < P && lane == 0) {
+    for (int p = blockIdx.x * THREADS + tid; p < P; p += gridDim.x * THREADS) {
       best_k[p] = 0;
       best_d[p] = BIG;
     }
     return;
   }
-  const bool active = p < P && gate_p[p] != 0;  // uniform within the warp
-  const int dpl = D / 32;
+  const float radius = sqrtf(fmaxf(radius_sq, 0.0f));
+  const int n_chunks = K == 0 ? 1 : (K + KC - 1) / KC;
 
-  float od[MAX_O][DPL];
-  float on[MAX_O];
-  bool ov[MAX_O];
-  float pu = 0.0f, pv = 0.0f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int k0 = ch * KC;
+    const int kn = min(K - k0, KC);
+    // Bin this chunk's gated keypoints: extent, grid, counts, starts, scatter.
+    float ku[KPT], kv[KPT];
+    int cr[KPT];  // cell << 16 | rank within the cell; -1 for no keypoint
+    const float inf = __int_as_float(0x7f800000);
+    float lo_u = inf, lo_v = inf, hi_u = -inf, hi_v = -inf;
+    uint8_t okb[KPT] = {};
+    if (kn > 0) {  // every load from a clamped index, before any is used
 #pragma unroll
-  for (int o = 0; o < MAX_O; ++o) {
-    on[o] = 0.0f;
-    ov[o] = false;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) od[o][j] = 0.0f;
-  }
-  if (active) {
-    pu = uv_p[2 * p];
-    pv = uv_p[2 * p + 1];
-#pragma unroll
-    for (int o = 0; o < MAX_O; ++o) {
-      if (o < O) {
-        ov[o] = obs_valid[p * O + o] != 0;
-        float n = 0.0f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) {
-          if (j < dpl) {
-            const float x = __bfloat162float(obs_desc[((size_t)p * O + o) * D + lane + 32 * j]);
-            od[o][j] = x;
-            n += x * x;
-          }
-        }
-        on[o] = warp_sum(n);
+      for (int j = 0; j < KPT; ++j) {
+        const int i = min(tid + j * THREADS, kn - 1);
+        const float2 q = __ldg(reinterpret_cast<const float2*>(kp_uv) + k0 + i);
+        ku[j] = q.x;
+        kv[j] = q.y;
+        okb[j] = __ldg(kp_ok + k0 + i);
       }
     }
-  }
-
-  float best = BIG;
-  int bk = 0;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < KT; i += THREADS) {
-      const int k = k0 + i;
-      const bool in = k < K;
-      s_u[i] = in ? kp_uv[2 * k] : 0.0f;
-      s_v[i] = in ? kp_uv[2 * k + 1] : 0.0f;
-      s_ok[i] = in ? kp_ok[k] : 0;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      cr[j] = kn > 0 && tid + j * THREADS < kn && okb[j] != 0 ? 0 : -1;
+      if (cr[j] == 0) {
+        lo_u = fminf(lo_u, ku[j]);
+        lo_v = fminf(lo_v, kv[j]);
+        hi_u = fmaxf(hi_u, ku[j]);
+        hi_v = fmaxf(hi_v, kv[j]);
+      }
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      lo_u = fminf(lo_u, __shfl_xor_sync(0xffffffffu, lo_u, m));
+      lo_v = fminf(lo_v, __shfl_xor_sync(0xffffffffu, lo_v, m));
+      hi_u = fmaxf(hi_u, __shfl_xor_sync(0xffffffffu, hi_u, m));
+      hi_v = fmaxf(hi_v, __shfl_xor_sync(0xffffffffu, hi_v, m));
+    }
+    __syncthreads();  // the previous chunk's readers are done with shared memory
+    if (lane == 0) {
+      s_red[4 * warp] = lo_u;
+      s_red[4 * warp + 1] = lo_v;
+      s_red[4 * warp + 2] = hi_u;
+      s_red[4 * warp + 3] = hi_v;
     }
     __syncthreads();
-    if (!active) continue;
-    for (int i0 = 0; i0 < KT; i0 += 32) {
-      const int i = i0 + lane;
-      const float du = pu - s_u[i];
-      const float dv = pv - s_v[i];
-      const bool pass = s_ok[i] != 0 && du * du + dv * dv <= radius_sq;
-      unsigned bits = __ballot_sync(0xffffffffu, pass);
-      while (bits) {
-        const int src = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const int kk = k0 + i0 + src;
-        float kd[DPL];
-        float kn = 0.0f;
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) {
-          kd[j] = 0.0f;
-          if (j < dpl) {
-            kd[j] = __bfloat162float(__float2bfloat16_rn(kp_desc[(size_t)kk * D + lane + 32 * j]));
-            kn += kd[j] * kd[j];
-          }
+    for (int w = 0; w < WARPS; ++w) {
+      lo_u = fminf(lo_u, s_red[4 * w]);
+      lo_v = fminf(lo_v, s_red[4 * w + 1]);
+      hi_u = fmaxf(hi_u, s_red[4 * w + 2]);
+      hi_v = fmaxf(hi_v, s_red[4 * w + 3]);
+    }
+    const bool any = lo_u <= hi_u;  // some keypoint passed its gate
+    const Grid g = cell_grid(lo_u, lo_v, any ? hi_u : lo_u, any ? hi_v : lo_v, radius);
+    const int ncell = any ? g.nx * g.ny : 0;
+    for (int c = tid; c <= ncell; c += THREADS) s_cell[c] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      if (cr[j] == 0) {
+        const int c = cell_of(kv[j], g.lo_v, g.inv_side, g.ny) * g.nx +
+                      cell_of(ku[j], g.lo_u, g.inv_side, g.nx);
+        cr[j] = (c << 16) | atomicAdd(&s_cell[c], 1);
+      }
+    }
+    __syncthreads();
+    // Exclusive prefix sum of the counts, in place: each thread a run of
+    // up to CAP * CAP / THREADS consecutive cells, then a scan over the
+    // threads.
+    const int per = (ncell + THREADS - 1) / THREADS;
+    int cnt[CAP * CAP / THREADS];
+    int run = 0;
+#pragma unroll
+    for (int i = 0; i < CAP * CAP / THREADS; ++i) {
+      const int c = tid * per + i;
+      cnt[i] = (i < per && c < ncell) ? s_cell[c] : 0;
+      run += cnt[i];
+    }
+    int incl = run;
+#pragma unroll
+    for (int m = 1; m < 32; m <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, m);
+      if (lane >= m) incl += y;
+    }
+    if (lane == 31) s_red[warp] = __int_as_float(incl);
+    __syncthreads();
+    int before = incl - run, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int t = __float_as_int(s_red[w]);
+      before += w < warp ? t : 0;
+      total += t;
+    }
+#pragma unroll
+    for (int i = 0; i < CAP * CAP / THREADS; ++i) {
+      const int c = tid * per + i;
+      if (i < per && c < ncell) s_cell[c] = before;
+      before += cnt[i];
+    }
+    if (tid == 0) s_cell[ncell] = total;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      if (cr[j] >= 0) {
+        const int pos = s_cell[cr[j] >> 16] + (cr[j] & 0xffff);
+        s_kuv[pos] = make_float2(ku[j], kv[j]);
+        s_ki[pos] = k0 + tid + j * THREADS;
+      }
+    }
+    __syncthreads();
+
+
+    // Each warp's map points against their 3 x 3 cells. The warp reads the
+    // gates of its next 32 points at once (lane i: point p0 + i * nw),
+    // writes (0, 1e9) for those not gated and walks the gated ones. In the
+    // descriptor stage lane l works on observation / keypoint slot l >> 2
+    // and descriptor pairs (l & 3) and (l & 3) + 4 of each 16-element chunk
+    // (the mma fragment layout).
+    const int slot = lane >> 2, quad = lane & 3;
+    const int nch = D / 16;
+    int* list = s_list + warp * 32;
+    for (int p0 = gw; p0 < P; p0 += 32 * nw) {
+      const int pl = p0 + lane * nw;
+      const bool gl = pl < P && any && gate_p[pl] != 0;
+      if (ch == 0 && pl < P && !gl) {
+        best_k[pl] = 0;
+        best_d[pl] = BIG;
+      }
+      unsigned gbits = __ballot_sync(0xffffffffu, gl);
+      while (gbits) {
+        const int p = p0 + (__ffs(gbits) - 1) * nw;
+        gbits &= gbits - 1;
+        float best = BIG;
+        int bk = 0;
+        if (ch > 0) {
+          best = best_d[p];
+          bk = best_k[p];
         }
-        kn = warp_sum(kn);
-        float d = BIG;
+        const float pu = uv_p[2 * p], pv = uv_p[2 * p + 1];
+        // Observation `slot`'s fragments and norm (the 4 lanes of the slot
+        // each hold a quarter of it).
+        const bool has_o = slot < O;
+        const int o = has_o ? slot : 0;
+        const bool ov = has_o && obs_valid[p * O + o] != 0;
+        const uint32_t* orow =
+            reinterpret_cast<const uint32_t*>(obs_desc + ((size_t)p * O + o) * D);
+        uint32_t of[NCH][2];
+        float on = 0.0f;
 #pragma unroll
-        for (int o = 0; o < MAX_O; ++o) {
-          if (o < O) {
-            float c = 0.0f;
-#pragma unroll
-            for (int j = 0; j < DPL; ++j) c += od[o][j] * kd[j];
-            c = warp_sum(c);
-            const float dd = fmaxf(on[o] + kn - 2.0f * c, 0.0f);
-            if (ov[o]) d = fminf(d, dd);
-          }
+        for (int c = 0; c < NCH; ++c) {
+          const int cc = c < nch ? c : 0;
+          of[c][0] = __ldg(orow + 8 * cc + quad);
+          of[c][1] = __ldg(orow + 8 * cc + 4 + quad);
         }
-        if (d < best) {
-          best = d;
-          bk = kk;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          if (!(c < nch && has_o)) of[c][0] = of[c][1] = 0u;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) on += sq_bf16(of[c][0]) + sq_bf16(of[c][1]);
+        on += __shfl_xor_sync(0xffffffffu, on, 1);
+        on += __shfl_xor_sync(0xffffffffu, on, 2);
+
+        const int cx = cell_of(pu, g.lo_u, g.inv_side, g.nx);
+        const int cy = cell_of(pv, g.lo_v, g.inv_side, g.ny);
+        const int xa = max(cx - 1, 0), xb = min(cx + 1, g.nx - 1);
+        const int ya = max(cy - 1, 0), yb = min(cy + 1, g.ny - 1);
+        int st[3], len[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          const int y = ya + r;
+          st[r] = y <= yb ? s_cell[y * g.nx + xa] : 0;
+          len[r] = y <= yb ? s_cell[y * g.nx + xb + 1] - st[r] : 0;
+        }
+        const int T = len[0] + len[1] + len[2];
+        for (int base = 0; base < T; base += 32) {
+          const int t = base + lane;
+          bool pass = false;
+          int mk = 0;
+          if (t < T) {
+            const int at = t < len[0]            ? st[0] + t
+                           : t < len[0] + len[1] ? st[1] + t - len[0]
+                                                 : st[2] + t - len[0] - len[1];
+            const float2 q = s_kuv[at];
+            const float du = pu - q.x, dv = pv - q.y;
+            pass = du * du + dv * dv <= radius_sq;
+            mk = s_ki[at];
+          }
+          const unsigned bits = __ballot_sync(0xffffffffu, pass);
+          if (pass) {
+            list[__popc(bits & ((1u << lane) - 1u))] = mk;
+            // The batches below find the passing rows in L1.
+            const char* rp = reinterpret_cast<const char*>(kp_desc + (size_t)mk * D);
+#pragma unroll
+            for (int l = 0; l < NCH / 2; ++l)
+              if (l < nch / 2) asm volatile("prefetch.global.L1 [%0];" ::"l"(rp + 128 * l));
+          }
+          __syncwarp();
+          const int npass = __popc(bits);
+          for (int b0 = 0; b0 < npass; b0 += 8) {
+            const int kk = b0 + slot < npass ? list[b0 + slot] : -1;  // this slot's keypoint
+            // Every load is issued, from a clamped address, before any is
+            // used (a guarded load would wait for the one before it).
+            const float* krow = kp_desc + (size_t)(kk < 0 ? list[0] : kk) * D + 2 * quad;
+            // Two accumulators (even and odd chunks) halve the chain of
+            // dependent mma; their sum is taken in one fixed order.
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int c0 = 0; c0 < NCH; c0 += 8) {  // 8 chunks' loads in flight at a time
+              if (c0 < nch) {
+                float2 x[8][2];
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                  const int cc = c0 + c < nch ? c0 + c : 0;
+                  x[c][0] = __ldg(reinterpret_cast<const float2*>(krow + 16 * cc));
+                  x[c][1] = __ldg(reinterpret_cast<const float2*>(krow + 16 * cc + 8));
+                }
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                  if (c0 + c < nch) {
+                    const uint32_t k0 = kk < 0 ? 0u : pack_bf16(x[c][0]);
+                    const uint32_t k1 = kk < 0 ? 0u : pack_bf16(x[c][1]);
+                    if (c % 2 == 0)
+                      mma_bf16(acc, of[c0 + c][0], k0, of[c0 + c][1], k1, k0, k1);
+                    else
+                      mma_bf16(acc2, of[c0 + c][0], k0, of[c0 + c][1], k1, k0, k1);
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i] += acc2[i];
+            // acc: <o_slot, k_2quad>, <o_slot, k_2quad+1>, and the same two
+            // columns against keypoint `slot`; n_k of column j sits in lane
+            // 4 j + j / 2 (row 8 + j).
+            const float kn0 = __shfl_sync(0xffffffffu, acc[2], 9 * quad);
+            const float kn1 = __shfl_sync(0xffffffffu, acc[3], 9 * quad + 4);
+            const int k0 = __shfl_sync(0xffffffffu, kk, 8 * quad);
+            const int k1 = __shfl_sync(0xffffffffu, kk, 8 * quad + 4);
+            float d0 = ov ? fmaxf(on + kn0 - 2.0f * acc[0], 0.0f) : BIG;
+            float d1 = ov ? fmaxf(on + kn1 - 2.0f * acc[1], 0.0f) : BIG;
+#pragma unroll
+            for (int m = 4; m < 32; m <<= 1) {
+              d0 = fminf(d0, __shfl_xor_sync(0xffffffffu, d0, m));
+              d1 = fminf(d1, __shfl_xor_sync(0xffffffffu, d1, m));
+            }
+            take_best(d0, k0, best, bk);
+            take_best(d1, k1, best, bk);
+          }
+          __syncwarp();  // `list` is rewritten by the next round
+        }
+        // Lanes 0-3 hold the best of columns (2l, 2l + 1): the least of them.
+#pragma unroll
+        for (int m = 1; m < 4; m <<= 1) {
+          const float od = __shfl_xor_sync(0xffffffffu, best, m);
+          const int ok = __shfl_xor_sync(0xffffffffu, bk, m);
+          take_best(od, ok, best, bk);
+        }
+        if (lane == 0) {
+          best_k[p] = bk;
+          best_d[p] = best;
         }
       }
     }
-  }
-  if (p < P && lane == 0) {
-    best_k[p] = bk;
-    best_d[p] = best;
   }
 }
 
-template <int DPL>
-void launch(int blocks, cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
-            const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
-            const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip, int* best_k,
-            float* best_d, int P, int O, int D, int K, float radius_sq) {
-  if (skip != nullptr)
-    guided_match_kernel<DPL, true><<<blocks, THREADS, 0, stream>>>(
-        uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P, O, D,
-        K, radius_sq);
-  else
-    guided_match_kernel<DPL, false><<<blocks, THREADS, 0, stream>>>(
-        uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P, O, D,
-        K, radius_sq);
+template <int NCH, bool SKIP>
+cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
+                   const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
+                   const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip, int* best_k,
+                   float* best_d, int P, int O, int D, int K, float radius_sq) {
+  const auto kernel = guided_match_kernel<NCH, SKIP>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = FIXED_BYTES + (size_t)(K < KC ? K : KC) * (sizeof(float2) + sizeof(int));
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int need = (P + WARPS - 1) / WARPS;  // no more CTAs than a warp a point
+  const int blocks = sms < need ? sms : need;
+  kernel<<<blocks, THREADS, smem, stream>>>(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc,
+                                            kp_ok, skip, best_k, best_d, P, O, D, K, radius_sq);
+  return cudaGetLastError();
+}
+
+template <int NCH>
+cudaError_t dispatch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
+                     const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
+                     const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip,
+                     int* best_k, float* best_d, int P, int O, int D, int K, float radius_sq) {
+  return (skip != nullptr ? launch<NCH, true> : launch<NCH, false>)(
+      stream, uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P,
+      O, D, K, radius_sq);
 }
 
 }  // namespace
@@ -177,11 +457,12 @@ SLAM_API int slam_guided_match(const float* uv_p, const uint8_t* gate_p,
                                const float* kp_uv, const float* kp_desc, const uint8_t* kp_ok,
                                const uint8_t* skip, int* best_k, float* best_d, int P, int O,
                                int D, int K, float radius_sq, cudaStream_t stream) {
-  if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 || K < 0)
+  const bool aligned = reinterpret_cast<uintptr_t>(kp_desc) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(kp_uv) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(obs_desc) % 4 == 0;  // word loads
+  if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 || K < 0 || !aligned)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (P + WARPS - 1) / WARPS;
-  (D <= 128 ? launch<4> : launch<8>)(blocks, stream, uv_p, gate_p, obs_desc, obs_valid, kp_uv,
-                                     kp_desc, kp_ok, skip, best_k, best_d, P, O, D, K,
-                                     radius_sq);
-  return (int)cudaGetLastError();
+  return (int)(D <= 128 ? dispatch<8> : dispatch<16>)(stream, uv_p, gate_p, obs_desc, obs_valid,
+                                                      kp_uv, kp_desc, kp_ok, skip, best_k, best_d,
+                                                      P, O, D, K, radius_sq);
 }

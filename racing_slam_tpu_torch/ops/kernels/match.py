@@ -13,11 +13,13 @@ What bounds it on an H100: evaluated densely, as the TPU kernel does on its
 matrix unit, it is P*O*K*D = 4096*8*2400*128 multiply-adds (~20 GFLOP;
 twice that for the learned path's 256-d descriptors) per call, twice a
 frame, for a result that keeps about 20 keypoints per point: the pixel
-gate rejects ~99% of pairs at radius 28 px on 640x480.
-The kernel tests the cheap pixel gate first, one warp per point over
-keypoint tiles in shared memory, and computes descriptor distances only for
-the pairs that pass, so it is bound by the gate scan (P*K position tests)
-and the latency of the per-pair warp reductions, not by arithmetic.
+gate rejects ~99% of pairs at radius 28 px on 640x480, and a scan of all
+P*K positions is itself the largest cost. The kernel bins the gated
+keypoints into a cell grid in each CTA's shared memory, tests each point
+against the keypoints of its 3 x 3 cells only, and computes descriptor
+distances for the pairs that pass on the tensor cores, 8 keypoints a
+batch (mma.sync, bf16 in, float32 sums). Candidates come in cell order,
+so the running best is lexicographic in (distance, index).
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ from . import _build
 
 launches = 0
 BIG = 1e9
+def _aligned(t: torch.Tensor, n: int) -> torch.Tensor:
+    """`t`, or a copy of it where its data is not n-byte aligned (the
+    kernel loads descriptor fragments as n-byte words)."""
+    return t if t.data_ptr() % n == 0 else t.clone()
 
 
 def guided_match_stage1_reference(
@@ -95,8 +101,9 @@ def guided_match_stage1(
                 torch.where(skip, torch.full_like(bd, BIG), bd))
     P, O, D = obs_desc.shape
     K = kp_uv.shape[0]
-    obs_desc = obs_desc.to(torch.bfloat16)  # no-op for the state's bf16 cache
-    kp_desc = kp_desc.to(torch.float32)  # rounded to bf16 inside the kernel
+    obs_desc = _aligned(obs_desc.to(torch.bfloat16), 4)  # no-op for the state's bf16 cache
+    kp_desc = _aligned(kp_desc.to(torch.float32), 8)  # rounded to bf16 inside the kernel
+    kp_uv = _aligned(kp_uv, 8)
     if O > 8 or D % 32 != 0 or D > 256:
         raise ValueError(f"guided_match_stage1 kernel takes O <= 8, D in 32..256 in steps of 32; "
                          f"got {O}, {D}")

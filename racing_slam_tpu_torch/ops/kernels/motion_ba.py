@@ -8,13 +8,14 @@ damped 6x6 normal equations solved by 3x3 blocks, accept lambda/3 or reject
 lambda*2, Ceres' function-tolerance exit. Damping is H + lambda (diag H +
 1e-9 I) as in the plain solver (ops/ba.py), not the TPU kernel's flat 1e-9.
 
-What bounds it on an H100: latency. A solve is <= 10 iterations of two
-passes over K = 2400 rows (~100 KB) and a 27-value reduction; as plain
-PyTorch each iteration is ~100 small kernel launches, and the early exit
-needs either a host read per iteration or, as the twin does, every
-iteration run under a mask. The kernel runs the whole loop in one block:
-one launch per solve, a real early exit, no host synchronisation, and the
-rows stay in L1/L2 across the iterations.
+What bounds it on an H100: latency. A solve is <= 10 iterations over K =
+2400 rows (~100 KB) and a 28-value reduction; as plain PyTorch each
+iteration is ~100 small kernel launches, and the early exit needs either a
+host read per iteration or, as the twin does, every iteration run under a
+mask. The kernel runs the whole loop in one block: one launch per solve, a
+real early exit, no host synchronisation. The valid rows are compacted
+once into shared memory, and each iteration is one fused pass at the trial
+pose (cost, weights, H and g together) and one block reduction.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..ops import se3
 from ..ops.camera import Camera, project_camera_points, project_with_depth
 
@@ -83,8 +84,9 @@ class KeyframeStore(NamedTuple):
     frame_index: torch.Tensor  # [F] int64
 
     @staticmethod
-    def create(F: int, K: int, D: int, device=None) -> "KeyframeStore":
-        z = dict(device=device)
+    def create(F: int, K: int, D: int, device="cuda") -> "KeyframeStore":
+        """An empty store on `device` (the card unless told otherwise)."""
+        z = dict(device=resolve_device(device))
         return KeyframeStore(
             rvec=torch.zeros((F, 3), **z),
             t=torch.zeros((F, 3), **z),
@@ -112,8 +114,9 @@ class MapState(NamedTuple):
     obs_valid: torch.Tensor  # [P, O] bool
 
     @staticmethod
-    def create(P: int, O: int, device=None) -> "MapState":
-        z = dict(device=device)
+    def create(P: int, O: int, device="cuda") -> "MapState":
+        """An empty map on `device` (the card unless told otherwise)."""
+        z = dict(device=resolve_device(device))
         return MapState(
             pos=torch.zeros((P, 3), **z),
             color=torch.zeros((P,), **z),
@@ -177,7 +180,11 @@ class SlamState(NamedTuple):
     last_inliers: torch.Tensor  # int64 0-d
 
     @staticmethod
-    def create(F: int, P: int, O: int, K: int, D: int, A: int = 512, device=None) -> "SlamState":
+    def create(F: int, P: int, O: int, K: int, D: int, A: int = 512,
+               device="cuda") -> "SlamState":
+        """An empty world state on `device` (the card unless told otherwise,
+        as the JAX package's lands on its accelerator)."""
+        device = resolve_device(device)
         z = dict(device=device)
         zero = torch.zeros((), dtype=I64, **z)
         return SlamState(

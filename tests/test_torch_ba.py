@@ -309,3 +309,36 @@ def test_matrix_obs_terms_match_jax(rng, case):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(float(tba._problem_cost(tcam, tprob, HUBER)),
                                float(jba._problem_cost(cam, prob, HUBER)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_k3_twin_on_the_path_problem_matches_xla(seed):
+    """K3's twin, the oracle the card compares the kernel against, on the
+    tracking path's problem (chip_smoke.py check_motion_ba: K = 2400 rows,
+    70 % valid, 10 % gross outliers, 0.5 px noise, pixel Huber scale) run
+    to the path's max_iters = 10, against the JAX package's XLA motion_ba
+    (the same loop, function-tolerance exit and damping): rvec 1e-5, t
+    1e-4, cost within 1 %."""
+    rng = np.random.default_rng(seed)
+    K, cam = 2400, Camera(480.0, 480.0, 320.0, 240.0, 640, 480)
+    X = np.stack([rng.uniform(-6, 6, K), rng.uniform(-4, 4, K), rng.uniform(4, 14, K)], -1)
+    w = np.array([0.02, -0.05, 0.01])
+    th = np.linalg.norm(w)
+    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    Xc = X @ R.T + [0.3, -0.1, 0.2]
+    uv = np.stack([480.0 * Xc[:, 0] / Xc[:, 2] + 320.0, 480.0 * Xc[:, 1] / Xc[:, 2] + 240.0], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    uv[: K // 10] += rng.uniform(40, 120, (K // 10, 2))
+    valid = rng.uniform(size=K) < 0.7
+    X, uv = X.astype(np.float32), uv.astype(np.float32)
+    rv0 = (w + [0.01, -0.01, 0.005]).astype(np.float32)
+    t0 = np.array([0.35, -0.14, 0.26], np.float32)
+    huber = float(np.sqrt(5.991)) / cam.fx
+    out = _motion_twin(cam, rv0, t0, uv, X, valid, huber)
+    ref = jba.motion_ba(cam, jnp.asarray(rv0), jnp.asarray(t0), jnp.asarray(uv), jnp.asarray(X),
+                        jnp.asarray(valid), max_iters=10, huber_delta=huber, backend="xla")
+    np.testing.assert_allclose(out[:3], np.asarray(ref.rvec), atol=1e-5)
+    np.testing.assert_allclose(out[3:6], np.asarray(ref.t), atol=1e-4)
+    assert abs(out[6] - float(ref.cost)) <= 0.01 * float(ref.cost) + 1e-10
+    assert 1 <= out[7] <= 10

@@ -21,6 +21,7 @@ from racing_slam_tpu_torch.ops.kernels import match as k2
 from racing_slam_tpu_torch.ops.kernels import match_banded as k5
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
 from racing_slam_tpu_torch.ops.kernels import structure_ba as k4
+from match_grid_model import cell_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -323,3 +324,197 @@ def test_k6_kernel_matches_twin(cuda, Kq, Kk, dh, valid):
     want = k6.flash_mha_reference(q, k, v, mask).cpu().numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=0.05 * np.sqrt(np.mean(want**2)), rtol=0)
+
+
+def _k2_inputs(rng, P, K, W, H, D, radius, O=8, ties=20):
+    """Keypoints over a W x H frame, points within 0.8 radius of random
+    keypoints, unit descriptors, `ties` planted exact ties (keypoint 2i+1
+    duplicates 2i's descriptor, 0.1 radius away)."""
+    kp_uv = np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32)
+    kp = rng.standard_normal((K, D)).astype(np.float32)
+    kp /= np.linalg.norm(kp, axis=-1, keepdims=True)
+    for i in range(0, min(2 * ties, K - 1), 2):
+        kp[i + 1], kp_uv[i + 1] = kp[i], kp_uv[i] + 0.1 * radius
+    src = rng.integers(0, K, P)
+    obs = kp[src][:, None] + 0.2 * rng.standard_normal((P, O, D)).astype(np.float32)
+    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
+    off = rng.uniform(-0.55, 0.55, (P, 2)) * radius
+    return [(kp_uv[src] + off).astype(np.float32), rng.uniform(size=P) < 0.8, obs,
+            rng.uniform(size=(P, O)) < 0.7, kp_uv, kp, rng.uniform(size=K) < 0.9]
+
+
+def _k2_check(cuda, data, radius, skip=None):
+    """K2 against its twin: >= 99.9 % of the points pick the same keypoint,
+    distances within 1e-5 where they do, unmatched points (0, 1e9), and
+    every point whose twin picked a planted tie's lower index picks it."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in data]
+    args[2] = args[2].to(torch.bfloat16)
+    bk, bd = [t.cpu().numpy() for t in k2.guided_match_stage1(*args, radius_px=radius,
+                                                               skip=skip)]
+    rk, rd = [t.cpu().numpy() for t in k2.guided_match_stage1_reference(*args,
+                                                                        radius_px=radius)]
+    if skip is not None and bool(skip):
+        np.testing.assert_array_equal(bk, 0)
+        np.testing.assert_array_equal(bd, 1e9)
+        return rk, rd
+    same = bk == rk
+    assert same.mean() >= 0.999, same.mean()
+    np.testing.assert_allclose(bd[same], rd[same], atol=1e-5)
+    none = rd >= 1e9
+    np.testing.assert_array_equal(bk[none], 0)
+    np.testing.assert_array_equal(bd[none], 1e9)
+    lower = np.isin(rk, np.arange(0, 40, 2)) & ~none
+    np.testing.assert_array_equal(bk[lower], rk[lower])
+    return rk, rd
+
+
+@pytest.mark.parametrize("case", ["one_cell", "ties_across_cells", "border_ulps", "off_frame",
+                                  "radius_0.5", "radius_80", "720p_K7200", "K1"])
+def test_k2_cell_grid_cases_match_twin(cuda, case):
+    """K2's cell-binned search on inputs that stress the grid: every
+    keypoint in one cell; exact ties whose lower index lies in the later
+    cell; points exactly on the cell borders of the grid model
+    (tests/match_grid_model.py) and an ulp below them, each with its best
+    keypoint at the radius on the far side of the border or an ulp beyond
+    the radius; points off the frame and at negative coordinates; radius
+    0.5 px (the grid's side set by the cap) and 80 px; 7200 keypoints on
+    1280 x 720 (two binning chunks); a single keypoint."""
+    rng = np.random.default_rng(70 + len(case))
+    D, r, P, K, W, H = 128, 28.0, 600, 2400, 640, 480
+    if case == "radius_0.5":
+        r = 0.5
+    elif case == "radius_80":
+        r = 80.0
+    elif case == "720p_K7200":
+        P, K, W, H, r = 2000, 7200, 1280, 720, 42.0
+    elif case == "K1":
+        K = 1
+    data = _k2_inputs(rng, P, K, W, H, D, r)
+    if case == "one_cell":
+        data[4] = (100.0 + rng.uniform(0, 5, (K, 2))).astype(np.float32)
+        data[0] = (100.0 + rng.uniform(-15, 20, (P, 2))).astype(np.float32)
+    elif case == "ties_across_cells":
+        lo_u, lo_v, side, nx, _ = cell_grid(data[4], data[6], r)
+        for i in range(0, 40, 2):
+            border = lo_u + side * (1 + i % (nx - 2))
+            data[4][i, 0], data[4][i + 1, 0] = border + 0.3, border - 0.3  # lower index: later cell
+            data[4][i + 1, 1] = data[4][i, 1]
+            data[6][i] = data[6][i + 1] = True
+            data[0][i // 2] = data[4][i] - [0.3, 1.0]  # point i/2 between the two
+            data[1][i // 2] = True
+            data[3][i // 2] = True
+            data[2][i // 2] = data[5][i]
+        assert cell_grid(data[4], data[6], r)[:3] == (lo_u, lo_v, side), "the grid moved"
+    elif case == "border_ulps":
+        grid = cell_grid(data[4], data[6], r)
+        lo_u, _, side, nx, _ = grid
+        uv, ok = data[4][data[6]], np.nonzero(data[6])[0]
+        extreme = ok[[uv[:, 0].argmin(), uv[:, 0].argmax(), uv[:, 1].argmin(), uv[:, 1].argmax()]]
+        q = P // 4
+        kid = np.setdiff1d(np.arange(40, K), extreme)[: 2 * q]  # past the planted ties
+        b = (lo_u + side * rng.integers(1, nx - 1, 2 * q)).astype(np.float32)
+        pu = np.where(rng.uniform(size=2 * q) < 0.5, b, np.nextafter(b, np.float32(-1e9)))
+        data[0][: 2 * q, 0] = pu
+        # The first q points' keypoints lie an ulp beyond the radius to the
+        # right, the next q points' at the radius to the left.
+        data[4][kid[:q], 0] = np.nextafter(pu[:q] + np.float32(r), np.float32(1e9))
+        data[4][kid[q:], 0] = pu[q:] - np.float32(r)
+        data[4][kid, 1] = data[0][: 2 * q, 1]
+        data[6][kid] = True
+        data[1][: 2 * q] = True
+        data[3][: 2 * q] = True
+        data[2][: 2 * q] = data[5][kid][:, None, :]
+        assert cell_grid(data[4], data[6], r) == grid, "the grid moved"
+    elif case == "off_frame":
+        data[0][: P // 2] += rng.choice([-1.0, 1.0], (P // 2, 2)) * rng.uniform(5, 60, (P // 2, 2))
+        data[0][P // 2: P // 2 + 20] = -rng.uniform(0, 30, (20, 2))
+    rk, rd = _k2_check(cuda, data, r)
+    if case != "K1":
+        assert (rd < 1e9).sum() > P // 4
+    if case == "ties_across_cells":
+        assert (rk[:20] == np.arange(0, 40, 2)).all(), "the planted ties are not this case's answer"
+    if case == "border_ulps":  # the planted pairs decide this case's answers
+        assert (rk[:q] != kid[:q]).all() and (rk[q: 2 * q] == kid[q:]).mean() > 0.95
+
+
+@pytest.mark.parametrize("skip", [True, False])
+def test_k2_skip_instance(cuda, skip):
+    """The instance that reads the device `skip` flag: set, it writes
+    (0, 1e9) everywhere; unset, it answers as the twin."""
+    data = _k2_inputs(np.random.default_rng(80), 500, 2400, 640, 480, 128, 28.0)
+    _k2_check(cuda, data, 28.0, skip=torch.tensor(skip, device=cuda))
+
+
+def _k3_problem(rng, K, fx=480.0, cx=320.0, cy=240.0):
+    """chip_smoke.py check_motion_ba's problem at K rows: 70 % valid, 10 %
+    gross outliers, 0.5 px noise, the pose perturbed."""
+    X = np.stack([rng.uniform(-6, 6, K), rng.uniform(-4, 4, K), rng.uniform(4, 14, K)], -1)
+    w, t = np.array([0.02, -0.05, 0.01]), np.array([0.3, -0.1, 0.2])
+    Xc = X @ _rot(w).T + t
+    uv = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx, fx * Xc[:, 1] / Xc[:, 2] + cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    uv[: K // 10] += rng.uniform(40, 120, (K // 10, 2))
+    valid = rng.uniform(size=K) < 0.7
+    pose0 = np.concatenate([w + [0.01, -0.01, 0.005], t + [0.05, -0.04, 0.06]])
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return ([f32(pose0), f32(uv.reshape(K, 2)), f32(X.reshape(K, 3)), torch.from_numpy(valid)],
+            dict(fx=fx, cx=cx, cy=cy, huber_delta=float(np.sqrt(5.991)) / fx))
+
+
+@pytest.mark.parametrize("case", ["all_iters", "lambda_exit", "K0", "K1025", "K2561", "K7200",
+                                  "K12000"])
+def test_k3_fused_pass_cases_match_twin(cuda, case):
+    """K3 (rows compacted in shared memory, streamed past what shared memory
+    holds: K = 12000) against its twin: rvec 1e-5, t 1e-4, cost within 1 %.
+    `all_iters` runs all 10 iterations (ftol = 0); `lambda_exit` starts at
+    the optimum with lambda 1e6, so steps are rejected until lambda > 1e8
+    stops the loop. The sizes run with ftol = 0 too (all 10 iterations on
+    both sides) and with the tolerance exit on, where the iteration counts
+    agree within 1 unless rounding decides them: these problems converge in
+    two iterations, after which a step changes the float32 cost by a few
+    ulps at most, so whether it is accepted (and the exit taken) or
+    rejected (lambda doubled, the loop going on) depends on how each side
+    rounds its sums. Where the counts differ by more than
+    1, the step at which they parted (the shorter count n) must have moved
+    the cost on each side by no more than the float32 sum's rounding bound,
+    log2(valid rows) ulps, and each side's iterations past n must have moved
+    its pose by less than the pose tolerances and its cost by no more than
+    that bound. Each tolerance-exit run prints both counts and the twin's
+    with its rows in three other orders (run with -s to see them)."""
+    K = {"K0": 0, "K1025": 1025, "K2561": 2561, "K7200": 7200, "K12000": 12000}.get(case, 2400)
+    args, kw = _k3_problem(np.random.default_rng(30), K)
+    kw.update(max_iters=10)
+    if case == "lambda_exit":
+        conv = k3.motion_ba_lm_reference(*args, **{**kw, "max_iters": 30, "ftol": 0.0})
+        args[0] = conv[:6].clone()
+        kw.update(init_lambda=1e6)
+    args = [a.to(cuda) for a in args]
+    runs = [dict(kw, ftol=0.0)] + ([] if case in ("all_iters", "lambda_exit") else [kw])
+    for kwr in runs:
+        out = k3.motion_ba_lm(*args, **kwr).cpu().numpy()
+        ref = k3.motion_ba_lm_reference(*args, **kwr).cpu().numpy()
+        np.testing.assert_allclose(out[:3], ref[:3], atol=1e-5)
+        np.testing.assert_allclose(out[3:6], ref[3:6], atol=1e-4)
+        assert abs(out[6] - ref[6]) <= 0.01 * ref[6] + 1e-10, (out[6], ref[6])
+        if kwr.get("ftol") == 0.0 and case != "lambda_exit":
+            assert out[7] == ref[7] == 10, (out[7], ref[7])
+        elif case == "lambda_exit":
+            assert abs(out[7] - ref[7]) <= 1 and out[7] < 10, (out[7], ref[7])
+        else:
+            orders = [torch.from_numpy(np.random.default_rng(s).permutation(K)).to(cuda)
+                      for s in range(3)]
+            reordered = [int(k3.motion_ba_lm_reference(args[0], *[a[o] for a in args[1:]],
+                                                       **kwr)[7]) for o in orders]
+            print(f"K3 {case}: iterations kernel {out[7]:.0f}, twin {ref[7]:.0f}, "
+                  f"twin with its rows reordered {reordered}")
+            if abs(out[7] - ref[7]) > 1:
+                n = int(min(out[7], ref[7]))
+                bound = np.ceil(np.log2(max(int(args[3].sum()), 2)))
+                for fn, full in ((k3.motion_ba_lm, out), (k3.motion_ba_lm_reference, ref)):
+                    at_n, before = [fn(*args, **{**kwr, "max_iters": m}).cpu().numpy()
+                                    for m in (n, n - 1)]
+                    ulp = np.spacing(np.float32(at_n[6]))
+                    assert before[6] - at_n[6] <= bound * ulp, (fn.__name__, n, before, at_n)
+                    np.testing.assert_allclose(full[:3], at_n[:3], atol=1e-5)
+                    np.testing.assert_allclose(full[3:6], at_n[3:6], atol=1e-4)
+                    assert abs(full[6] - at_n[6]) <= bound * ulp, (fn.__name__, full, at_n)

@@ -42,6 +42,7 @@ from racing_slam_tpu_torch.ops.kernels.attention import flash_mha, flash_mha_ref
 from racing_slam_tpu_torch.slam.config import SlamConfig
 from racing_slam_tpu_torch.slam.frontend import LightGlueMatcher
 from racing_slam_tpu_torch.slam.pipeline import Slam
+from racing_slam_tpu_torch.slam.state import SlamState
 from racing_slam_tpu_torch.utils.convert import (
     lightglue_params_from_numpy,
     state_from_numpy,
@@ -356,10 +357,11 @@ def test_mismatched_lightglue_weights_raise():
 
 
 @pytest.mark.parametrize("entry", ["superpoint_frontend", "superpoint_load", "lightglue_load",
-                                   "lightglue_matcher", "state_from_numpy"])
+                                   "lightglue_matcher", "state_from_numpy", "slam_state_create"])
 def test_entry_points_default_to_the_card(entry):
-    """Without a card, the learned path's entry points and the state
-    converter raise unless given device="cpu"; with device="cpu" they build."""
+    """Without a card, the learned path's entry points, the state converter
+    and the state constructor raise unless given device="cpu"; with
+    device="cpu" they build."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     make = {
@@ -371,6 +373,7 @@ def test_entry_points_default_to_the_card(entry):
             tlg.load_params(WEIGHTS / "lightglue.npz", device="cpu"), (320.0, 240.0), **kw),
         "state_from_numpy": lambda **kw: state_from_numpy(jax.tree.map(
             np.asarray, jstate.SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2)), **kw),
+        "slam_state_create": lambda **kw: SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
