@@ -276,6 +276,32 @@ def check_match(dev, D: int = 128) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/match_kernel.py:115")
 
 
+def _k5_needed(plan, P: int, D: int, radius: float, tile_k: int, band_tiles: int):
+    """What K5's result needs of a band plan's data: (bytes, pixel-gate
+    tests, bf16 operations / 2D). _k2_needed's rule over the rows of the
+    active tiles as p_sel selects them, each against its tile's band, plus
+    their p_sel entries, starts, n_act and the outputs of the inactive
+    rows."""
+    import torch
+
+    uv, gate, _, ov, p_sel, kuv, _, kok, starts = [
+        x.float().cpu().numpy() if x.dtype == torch.bfloat16 else x.cpu().numpy()
+        for x in plan.k5_args]
+    n_act, G = int(plan.n_act), len(p_sel)
+    tile_p, width = G // len(starts), band_tiles * tile_k
+    rows = n_act * tile_p
+    src = np.minimum(p_sel[:rows], P - 1)
+    uv, gate, ov = uv[src], gate[src] & (p_sel[:rows] < P), ov[src]
+    passing = np.zeros((rows, len(kok)), bool)
+    for i in range(n_act):
+        s0, s = int(starts[i]) * tile_k, slice(i * tile_p, (i + 1) * tile_p)
+        d2 = ((uv[s, None] - kuv[None, s0:s0 + width]) ** 2).sum(-1)
+        passing[s, s0:s0 + width] = (d2 <= radius ** 2) & gate[s, None] & kok[None, s0:s0 + width]
+    n_bytes, tests = _k2_needed(uv, gate, ov, kuv, kok, passing, D, radius)
+    n_bytes += rows * 4 + (G - rows) * 8 + starts.nbytes + 4  # n_act as int32
+    return n_bytes, tests, int((passing.sum(1) * ov.sum(1)).sum())
+
+
 def check_match_banded(dev) -> dict:
     """K5 at the scale path's shape: check_match's data grown to P=16384
     map points, about 2000 of them gated (the gated count of a large map's
@@ -290,11 +316,13 @@ def check_match_banded(dev) -> dict:
     sorted rows (60 % of 16384 gated): it must report the fallback, K5 must
     do no work and K2's answer must match its twin's.
 
-    Bound: a pixel-gate test (~5 float32 operations) for each of the
-    n_act * 256 x 1024 (point, band keypoint) pairs, 2D bf16 operations per
-    passing pair and valid observation, against the bytes of the active
-    rows, the keypoints, starts and the [8192] outputs. No library call
-    computes a gated argmin."""
+    Bound: check_match's rule (_k2_needed) over the rows of the active
+    tiles, read through p_sel: the bytes the result needs (the gated rows'
+    positions, flags and valid observation rows, the descriptor rows of
+    keypoints passing with a gated row, ...) plus the p_sel entries,
+    starts, n_act and the [8192] outputs; the gate tests of 3 x 3 cells and
+    2D bf16 operations per passing pair and valid observation. No library
+    call computes a gated argmin."""
     import torch
 
     from racing_slam_tpu_torch.ops import matching
@@ -347,23 +375,62 @@ def check_match_banded(dev) -> dict:
 
     ms = cuda_ms(lambda: k.guided_match_stage1_banded(*kargs, **tiles))
     plain = cuda_ms(lambda: k.guided_match_stage1_banded_reference(*kargs, **tiles), rounds=1)
-    # The pairs this data needs: each active row against its tile's band.
-    uv, gate, _, ov, kuv, _, kok, starts = [x.float().cpu().numpy() if x.dtype == torch.bfloat16
-                                            else x.cpu().numpy() for x in plan.k5_args]
-    rows = n_act_h * 256
-    dots = 0
-    for i in range(n_act_h):
-        s0 = int(starts[i]) * 512
-        d2 = ((uv[i * 256:(i + 1) * 256, None] - kuv[None, s0:s0 + 1024]) ** 2).sum(-1)
-        ok = (d2 <= r * r) & gate[i * 256:(i + 1) * 256, None] & kok[None, s0:s0 + 1024]
-        dots += int((ok.sum(1) * ov[i * 256:(i + 1) * 256].sum(1)).sum())
-    row_bytes = 8 + 1 + 8 * D * 2 + 8
-    n_bytes = rows * row_bytes + nbytes(*plan.k5_args[4:]) + nbytes(n_act) + len(bk) * 8
+    prune = _k5_where_the_band_prunes(dev)
+    n_bytes, tests, dots = _k5_needed(plan, P, D, r, tiles["tile_k"], tiles["band_tiles"])
     return dict(name="guided_match_stage1_banded", module=k, max_abs_err=err, ms=ms,
-                plain_ms=plain, library_ms=None,
-                **bound(n_bytes, {"f32": 5 * rows * 1024, "bf16": 2 * D * dots}),
+                plain_ms=plain, library_ms=None, prune=prune,
+                **bound(n_bytes, {"f32": 5 * tests, "bf16": 2 * D * dots}),
                 source="racing_slam_tpu_torch/csrc/match_banded_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/match_kernel.py:305")
+
+
+def _k5_prune_data(rng, P: int = 16384, K: int = 7200, n_gated: int = 6000, D: int = 128):
+    """A 1280x720 frame with K=7200 keypoints (15 tiles of 512) and a map
+    view of 6000 gated points near them: each 256-row point tile spans
+    ~30 px of y, and a band of 3 keypoint tiles (two do not always reach
+    across a tile's y-range +- 28 px) holds its candidates, so the band
+    prunes 12 of 15 tiles."""
+    O = 8
+    kp_uv = np.stack([rng.uniform(0, 1280, K), rng.uniform(0, 720, K)], -1).astype(np.float32)
+    kp_desc = rng.standard_normal((K, D)).astype(np.float32)
+    kp_desc /= np.linalg.norm(kp_desc, axis=-1, keepdims=True)
+    src = rng.integers(0, K, P)
+    uv_p = (kp_uv[src] + rng.uniform(-6, 6, (P, 2))).astype(np.float32)
+    obs = kp_desc[src][:, None, :] + 0.15 * rng.standard_normal((P, O, D)).astype(np.float32)
+    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
+    gate = np.zeros(P, bool)
+    gate[rng.choice(P, n_gated, replace=False)] = True
+    return (uv_p, gate, obs, rng.uniform(size=(P, O)) < 0.7, kp_uv, kp_desc,
+            rng.uniform(size=K) < 0.95)
+
+
+def _k5_where_the_band_prunes(dev) -> dict:
+    """K5 on _k5_prune_data, planned by band_plan: the band must fit; the
+    kernel is held to its twin at check_match_banded's tolerances and
+    timed."""
+    import torch
+
+    from racing_slam_tpu_torch.ops import matching
+    from racing_slam_tpu_torch.ops.kernels import match_banded as k
+
+    tiles = dict(radius_px=28.0, tile_p=256, tile_k=512, band_tiles=3)
+    args = [torch.from_numpy(a).to(dev) for a in _k5_prune_data(np.random.default_rng(19))]
+    args[2] = args[2].to(torch.bfloat16)
+    plan = matching.band_plan(*args, **tiles)
+    assert bool(plan.fits), "the 720p K=7200 band does not fit"
+    kargs = (*plan.k5_args, plan.n_act.to(torch.int32))
+    bk, bd = [x.cpu().numpy() for x in k.guided_match_stage1_banded(*kargs, **tiles)]
+    rk, rd = [x.cpu().numpy() for x in k.guided_match_stage1_banded_reference(*kargs, **tiles)]
+    err = float(np.abs(bd - rd).max())
+    hit = rd < 1e9
+    agree = float((bk[hit] == rk[hit]).mean())
+    assert err <= 1e-5 and agree >= 0.999, (err, agree)
+    ms = cuda_ms(lambda: k.guided_match_stage1_banded(*kargs, **tiles))
+    out = dict(shape="1280x720, K=7200, 6000 gated, band 3 of 15 tiles",
+               active_tiles=int(plan.n_act), matched=int(hit.sum()), max_abs_err=err,
+               agreement=agree, ms=ms)
+    log("K5 where the band prunes: " + json.dumps(out))
+    return out
 
 
 def _rotvec_matrix(w):
@@ -862,7 +929,7 @@ def profile_path(slam, frames: list, n: int) -> dict:
 
 
 def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
-             profile_frames: int = 0) -> dict:
+             profile_frames: int = 0, slam_seed: int = 0) -> dict:
     import torch
 
     from racing_slam_tpu_torch.slam.config import SlamConfig
@@ -882,7 +949,7 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
         keyframe_match_ratio=0.8, matcher=matcher,
     ), **overrides})
     frontend = superpoint_frontend(dev) if frontend_kind == "superpoint" else None
-    slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev)
+    slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev, seed=slam_seed)
     for kern in kernels:
         kern["module"].launches = 0
     torch.cuda.synchronize()
@@ -1013,7 +1080,7 @@ def main() -> int:
                    launches_by_path=by_path)
         row.update({key: kern[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")})
-        row.update({key: kern[key] for key in ("d256", "ms_an_iteration") if key in kern})
+        row.update({key: kern[key] for key in ("d256", "ms_an_iteration", "prune") if key in kern})
         table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,19 +33,11 @@
 //   (three contiguous runs of the cell-ordered arrays, one per cell row), 32
 //   at a time, by a ballot, and prefetches the passing keypoints'
 //   descriptor rows into L1.
-// - The pairs that pass every gate go to the tensor cores, 8 keypoints at a
-//   time: one mma.m16n8k16 (bf16 in, float32 sums) per 16 descriptor
-//   elements, with A = the point's 8 observations (rows 0-7) over the 8
-//   keypoints (rows 8-15) and B = the 8 keypoints. Rows 0-7 of the product
-//   are <o, k>; the diagonal of rows 8-15 is each keypoint's norm n_k. The
-//   keypoint rows are rounded to bf16 as they are loaded; the point's
-//   observation fragments and norms stay in registers for the point. A
-//   3-step min across the lanes of a column takes the minimum over
-//   observations. The tensor cores sum in a fixed order, so equal
-//   descriptors give equal distances wherever they sit in a batch.
-// - Candidates arrive in cell order, not index order, so the running best
-//   is lexicographic in (distance, keypoint index): the lowest index wins
-//   a tie, as in the dense scan.
+// - The pairs that pass every gate go to the tensor cores, 8 keypoints at
+//   a time (match_common.cuh, shared with K5). Candidates arrive in cell
+//   order, not index order, so the running best is lexicographic in
+//   (distance, keypoint index): the lowest index wins a tie, as in the
+//   dense scan.
 //
 // `skip` (may be null) is a device flag: when it is set, the call writes
 // (0, 1e9) everywhere and returns. The banded matcher launches this kernel
@@ -94,36 +86,6 @@ __device__ __forceinline__ Grid cell_grid(float lo_u, float lo_v, float hi_u, fl
 // Cell coordinate of x, clamped to [0, n - 1] (NaN goes to 0).
 __device__ __forceinline__ int cell_of(float x, float lo, float inv_side, int n) {
   return (int)fminf(fmaxf(floorf((x - lo) * inv_side), 0.0f), (float)(n - 1));
-}
-
-// Two float32 values rounded to a bf16 pair (x in the low half).
-__device__ __forceinline__ uint32_t pack_bf16(float2 x) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The squares of a bf16 pair, summed in float32.
-__device__ __forceinline__ float sq_bf16(uint32_t w) {
-  const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
-  return lo * lo + hi * hi;
-}
-
-// c += A B for one 16 x 8 x 16 tile: bf16 operands, float32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The lexicographic running best: (d, k) replaces (best, bk) if it is less.
-__device__ __forceinline__ void take_best(float d, int k, float& best, int& bk) {
-  if (k >= 0 && (d < best || (d == best && k < bk))) {
-    best = d;
-    bk = k;
-  }
 }
 
 template <int NCH, bool SKIP>  // 16-element descriptor chunks: D <= 16 * NCH
@@ -264,15 +226,9 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
     }
     __syncthreads();
 
-
     // Each warp's map points against their 3 x 3 cells. The warp reads the
     // gates of its next 32 points at once (lane i: point p0 + i * nw),
-    // writes (0, 1e9) for those not gated and walks the gated ones. In the
-    // descriptor stage lane l works on observation / keypoint slot l >> 2
-    // and descriptor pairs (l & 3) and (l & 3) + 4 of each 16-element chunk
-    // (the mma fragment layout).
-    const int slot = lane >> 2, quad = lane & 3;
-    const int nch = D / 16;
+    // writes (0, 1e9) for those not gated and walks the gated ones.
     int* list = s_list + warp * 32;
     for (int p0 = gw; p0 < P; p0 += 32 * nw) {
       const int pl = p0 + lane * nw;
@@ -292,28 +248,8 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
           bk = best_k[p];
         }
         const float pu = uv_p[2 * p], pv = uv_p[2 * p + 1];
-        // Observation `slot`'s fragments and norm (the 4 lanes of the slot
-        // each hold a quarter of it).
-        const bool has_o = slot < O;
-        const int o = has_o ? slot : 0;
-        const bool ov = has_o && obs_valid[p * O + o] != 0;
-        const uint32_t* orow =
-            reinterpret_cast<const uint32_t*>(obs_desc + ((size_t)p * O + o) * D);
-        uint32_t of[NCH][2];
-        float on = 0.0f;
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const int cc = c < nch ? c : 0;
-          of[c][0] = __ldg(orow + 8 * cc + quad);
-          of[c][1] = __ldg(orow + 8 * cc + 4 + quad);
-        }
-#pragma unroll
-        for (int c = 0; c < NCH; ++c)
-          if (!(c < nch && has_o)) of[c][0] = of[c][1] = 0u;
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) on += sq_bf16(of[c][0]) + sq_bf16(of[c][1]);
-        on += __shfl_xor_sync(0xffffffffu, on, 1);
-        on += __shfl_xor_sync(0xffffffffu, on, 2);
+        PointObs<NCH> obs;
+        obs.load(obs_desc, obs_valid, p, O, D, lane);
 
         const int cx = cell_of(pu, g.lo_u, g.inv_side, g.nx);
         const int cy = cell_of(pv, g.lo_v, g.inv_side, g.ny);
@@ -340,76 +276,11 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
             pass = du * du + dv * dv <= radius_sq;
             mk = s_ki[at];
           }
-          const unsigned bits = __ballot_sync(0xffffffffu, pass);
-          if (pass) {
-            list[__popc(bits & ((1u << lane) - 1u))] = mk;
-            // The batches below find the passing rows in L1.
-            const char* rp = reinterpret_cast<const char*>(kp_desc + (size_t)mk * D);
-#pragma unroll
-            for (int l = 0; l < NCH / 2; ++l)
-              if (l < nch / 2) asm volatile("prefetch.global.L1 [%0];" ::"l"(rp + 128 * l));
-          }
-          __syncwarp();
-          const int npass = __popc(bits);
-          for (int b0 = 0; b0 < npass; b0 += 8) {
-            const int kk = b0 + slot < npass ? list[b0 + slot] : -1;  // this slot's keypoint
-            // Every load is issued, from a clamped address, before any is
-            // used (a guarded load would wait for the one before it).
-            const float* krow = kp_desc + (size_t)(kk < 0 ? list[0] : kk) * D + 2 * quad;
-            // Two accumulators (even and odd chunks) halve the chain of
-            // dependent mma; their sum is taken in one fixed order.
-            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-            for (int c0 = 0; c0 < NCH; c0 += 8) {  // 8 chunks' loads in flight at a time
-              if (c0 < nch) {
-                float2 x[8][2];
-#pragma unroll
-                for (int c = 0; c < 8; ++c) {
-                  const int cc = c0 + c < nch ? c0 + c : 0;
-                  x[c][0] = __ldg(reinterpret_cast<const float2*>(krow + 16 * cc));
-                  x[c][1] = __ldg(reinterpret_cast<const float2*>(krow + 16 * cc + 8));
-                }
-#pragma unroll
-                for (int c = 0; c < 8; ++c) {
-                  if (c0 + c < nch) {
-                    const uint32_t k0 = kk < 0 ? 0u : pack_bf16(x[c][0]);
-                    const uint32_t k1 = kk < 0 ? 0u : pack_bf16(x[c][1]);
-                    if (c % 2 == 0)
-                      mma_bf16(acc, of[c0 + c][0], k0, of[c0 + c][1], k1, k0, k1);
-                    else
-                      mma_bf16(acc2, of[c0 + c][0], k0, of[c0 + c][1], k1, k0, k1);
-                  }
-                }
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i] += acc2[i];
-            // acc: <o_slot, k_2quad>, <o_slot, k_2quad+1>, and the same two
-            // columns against keypoint `slot`; n_k of column j sits in lane
-            // 4 j + j / 2 (row 8 + j).
-            const float kn0 = __shfl_sync(0xffffffffu, acc[2], 9 * quad);
-            const float kn1 = __shfl_sync(0xffffffffu, acc[3], 9 * quad + 4);
-            const int k0 = __shfl_sync(0xffffffffu, kk, 8 * quad);
-            const int k1 = __shfl_sync(0xffffffffu, kk, 8 * quad + 4);
-            float d0 = ov ? fmaxf(on + kn0 - 2.0f * acc[0], 0.0f) : BIG;
-            float d1 = ov ? fmaxf(on + kn1 - 2.0f * acc[1], 0.0f) : BIG;
-#pragma unroll
-            for (int m = 4; m < 32; m <<= 1) {
-              d0 = fminf(d0, __shfl_xor_sync(0xffffffffu, d0, m));
-              d1 = fminf(d1, __shfl_xor_sync(0xffffffffu, d1, m));
-            }
-            take_best(d0, k0, best, bk);
-            take_best(d1, k1, best, bk);
-          }
+          const int npass = collect(pass, mk, list, kp_desc, D, lane);
+          obs.score(kp_desc, list, npass, D, lane, best, bk);
           __syncwarp();  // `list` is rewritten by the next round
         }
-        // Lanes 0-3 hold the best of columns (2l, 2l + 1): the least of them.
-#pragma unroll
-        for (int m = 1; m < 4; m <<= 1) {
-          const float od = __shfl_xor_sync(0xffffffffu, best, m);
-          const int ok = __shfl_xor_sync(0xffffffffu, bk, m);
-          take_best(od, ok, best, bk);
-        }
+        reduce_best(best, bk);
         if (lane == 0) {
           best_k[p] = bk;
           best_d[p] = best;

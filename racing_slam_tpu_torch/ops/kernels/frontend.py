@@ -8,15 +8,16 @@ tensor box sums, Shi-Tomasi min eigenvalue, border and mask gating, and 15x15
 NMS peaks; plus an independent sigma=2 descriptor blur. Zero padding outside
 the frame, as the plain stack (ops/image.py).
 
-What bounds it on an H100: at 640x480 the whole stack is ~120 flops and
-~16 bytes of frame traffic per pixel (~35 MFLOP, ~5 MB), microseconds at
-the card's peaks, so neither flops nor bandwidth bound it; the plain stack
-pays instead for ~35 separate passes, each a launch and a round trip of a
-full-frame intermediate through device memory. The kernel makes one pass:
-each 32x32 output tile gets one block that stages its 13 px halo in shared
-memory and keeps every intermediate there, writing only the three output
-maps. What is left is latency: six barrier-separated phases in 300 small
-blocks, and a 3.3x recompute of the halo region.
+What bounds it on an H100: at 640x480 the whole stack is ~170 flops and
+20 bytes of device memory a pixel (~52 MFLOP, ~6 MB), microseconds at the
+card's peaks; the plain stack pays instead for ~35 separate passes, each a
+launch and a round trip of a full-frame intermediate through device
+memory. The kernel makes one pass: each 80x32 output tile gets one block
+of 1024 threads that stages its 13 px halo in shared memory, keeps every
+intermediate there or in registers, and writes only the three output maps
+(120 blocks at 640x480, one wave). Each of its seven separable passes has
+a thread compute a run of 8 outputs from a register window, so a tap is
+read from shared memory once a run, not once an output (see the source).
 """
 
 from __future__ import annotations

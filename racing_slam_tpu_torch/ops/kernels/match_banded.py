@@ -3,21 +3,24 @@
 Replaces racing_slam_tpu/ops/pallas/match_kernel.py:guided_match_stage1_banded.
 Source: racing_slam_tpu_torch/csrc/match_banded_kernel.cu.
 
-What it computes: K2's contract over y-sorted inputs. Map points come
-sorted gated-first by projected y and keypoints sorted by y, padded to a
-multiple of `tile_k`; point tile i (`tile_p` points) looks only at the
-keypoint band [starts[i] * tile_k, (starts[i] + band_tiles) * tile_k).
-Tiles i >= n_active_tiles hold no gated point and give (0, 1e9). Returns
-(best_k into the SORTED keypoint order, best_d_sq), ties to the lowest
-sorted index. The sorting, the bands and the fallback decision are
-ops/matching.py's `_banded_stage1`.
+What it computes: K2's contract over y-sorted inputs. Sorted row g is the
+map point p_sel[g] (rows sorted gated-first by projected y; p_sel[g] >= P
+is a padding row, never gated), read through p_sel, so that the caller
+gathers nothing; keypoints come sorted so that kp_ok ? v : +inf does not
+decrease, padded to a multiple of `tile_k`. Point tile i (`tile_p` rows)
+looks only at the keypoint band [starts[i] * tile_k, (starts[i] +
+band_tiles) * tile_k). Tiles i >= n_active_tiles hold no gated point and
+give (0, 1e9). Returns (best_k into the SORTED keypoint order, best_d_sq)
+per sorted row, ties to the lowest sorted index. The sorting, the bands
+and the fallback decision are ops/matching.py's `_banded_stage1`.
 
-What bounds it on an H100: at the scale path's shape (8192 sorted rows of 8
-bf16 128-d observations, 2560 padded keypoints, 32 point tiles) the work is
-the gate scan over n_act * 256 x 1024 pairs and a warp reduction per pair
-that passes; like K2, it tests positions first and computes descriptor
-distances only for the pairs within the radius. `starts` and
-`n_active_tiles` stay on the device, so the call makes no host read.
+What bounds it on an H100: at the scale path's shape (8192 sorted rows of
+8 bf16 128-d observations, 2560 padded keypoints, 32 point tiles) the
+bytes of the active rows, ~2 KB a point, read once. The kernel searches
+each point's run of keypoints within the radius in y (the band is sorted
+by y) instead of scanning the band, and scores the pairs that pass on the
+tensor cores (see the source). `starts` and `n_active_tiles` stay on the
+device, so the call makes no host read.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .match import BIG
+from .match import BIG, _aligned
 
 launches = 0
 MAX_BAND = 2048  # csrc/match_banded_kernel.cu
@@ -36,6 +39,7 @@ def guided_match_stage1_banded_reference(
     gate_p: torch.Tensor,
     obs_desc: torch.Tensor,
     obs_valid: torch.Tensor,
+    p_sel: torch.Tensor,
     kp_uv: torch.Tensor,
     kp_desc: torch.Tensor,
     kp_ok: torch.Tensor,
@@ -46,10 +50,15 @@ def guided_match_stage1_banded_reference(
     tile_k: int = 512,
     band_tiles: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch twin: per point tile, the dense masked reduction over
-    its keypoint band (gathered), inactive tiles masked out on the device."""
+    """Plain-PyTorch twin: the rows p_sel gathered, then per point tile the
+    dense masked reduction over its keypoint band (gathered), inactive
+    tiles masked out on the device."""
     P, O, D = obs_desc.shape
+    G = p_sel.shape[0]
     dev = uv_p.device
+    src = torch.clamp(p_sel.long(), 0, P - 1)
+    uv_p, obs_desc, obs_valid = uv_p[src], obs_desc[src], obs_valid[src]
+    gate_p = (p_sel < P) & gate_p[src]
     width = band_tiles * tile_k
     r2 = radius_px * radius_px
     kb = kp_desc.to(torch.bfloat16).float()
@@ -57,7 +66,7 @@ def guided_match_stage1_banded_reference(
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
     lane = torch.arange(width, device=dev)
     best_k, best_d = [], []
-    for i in range(P // tile_p):
+    for i in range(G // tile_p):
         s, e = i * tile_p, (i + 1) * tile_p
         kidx = starts[i].long() * tile_k + lane  # the tile's band, [width]
         duv = uv_p[s:e, None, :] - kp_uv[kidx][None, :, :]
@@ -77,52 +86,58 @@ def guided_match_stage1_banded_reference(
 
 
 def guided_match_stage1_banded(
-    uv_p: torch.Tensor,  # [P, 2] f32, sorted
+    uv_p: torch.Tensor,  # [P, 2] f32
     gate_p: torch.Tensor,  # [P] bool
     obs_desc: torch.Tensor,  # [P, O, D] bf16 (f32 is rounded)
     obs_valid: torch.Tensor,  # [P, O] bool
-    kp_uv: torch.Tensor,  # [K, 2] f32, sorted by y, K a multiple of tile_k
+    p_sel: torch.Tensor,  # [G] int32: sorted row -> point (>= P: padding)
+    kp_uv: torch.Tensor,  # [K, 2] f32, sorted by kp_ok ? y : inf, K a multiple of tile_k
     kp_desc: torch.Tensor,  # [K, D] f32 or bf16
     kp_ok: torch.Tensor,  # [K] bool
-    starts: torch.Tensor,  # [P / tile_p] int32 first keypoint tile of each band
+    starts: torch.Tensor,  # [G / tile_p] int32 first keypoint tile of each band
     n_active_tiles: torch.Tensor,  # 0-d int32
     radius_px: float = 20.0,
     tile_p: int = 256,
     tile_k: int = 512,
     band_tiles: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(best_k [P] i32 into the sorted keypoints, best_d_sq [P] f32)."""
-    tensors = (uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, starts, n_active_tiles)
+    """(best_k [G] i32 into the sorted keypoints, best_d_sq [G] f32)."""
+    tensors = (uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts,
+               n_active_tiles)
     tiles = dict(radius_px=radius_px, tile_p=tile_p, tile_k=tile_k, band_tiles=band_tiles)
     if _build.device_kind(*tensors) == "cpu":
         return guided_match_stage1_banded_reference(*tensors, **tiles)
     P, O, D = obs_desc.shape
+    G = p_sel.shape[0]
     K = kp_uv.shape[0]
-    obs_desc = obs_desc.to(torch.bfloat16)
-    kp_desc = kp_desc.to(torch.float32)
+    obs_desc = _aligned(obs_desc.to(torch.bfloat16), 4)  # no-op for the state's bf16 cache
+    kp_desc = _aligned(kp_desc.to(torch.float32), 8)
+    kp_uv = _aligned(kp_uv, 8)
     if O > 8 or D % 32 != 0 or D > 256:
         raise ValueError(f"guided_match_stage1_banded kernel takes O <= 8, D in 32..256 in "
                          f"steps of 32; got {O}, {D}")
-    if (P % tile_p or tile_p % 8 or K % tile_k or band_tiles * tile_k > MAX_BAND
+    if (G % tile_p or tile_p % 8 or K % tile_k or band_tiles * tile_k > MAX_BAND
             or K < band_tiles * tile_k):
-        raise ValueError(f"banded tiling: P={P} (tile {tile_p}, a multiple of 8), K={K} "
+        raise ValueError(f"banded tiling: G={G} (tile {tile_p}, a multiple of 8), K={K} "
                          f"(tile {tile_k}), band {band_tiles} tiles <= {MAX_BAND} keypoints")
     _build.expect(uv_p, "uv_p", torch.float32, (P, 2))
     _build.expect(gate_p, "gate_p", torch.bool, (P,))
     _build.expect(obs_desc, "obs_desc", torch.bfloat16, (P, O, D))
     _build.expect(obs_valid, "obs_valid", torch.bool, (P, O))
+    _build.expect(p_sel, "p_sel", torch.int32, (G,))
     _build.expect(kp_uv, "kp_uv", torch.float32, (K, 2))
     _build.expect(kp_desc, "kp_desc", torch.float32, (K, D))
     _build.expect(kp_ok, "kp_ok", torch.bool, (K,))
-    _build.expect(starts, "starts", torch.int32, (P // tile_p,))
+    _build.expect(starts, "starts", torch.int32, (G // tile_p,))
     _build.expect(n_active_tiles, "n_active_tiles", torch.int32, ())
-    best_k = torch.empty((P,), dtype=torch.int32, device=uv_p.device)
-    best_d = torch.empty((P,), dtype=torch.float32, device=uv_p.device)
+    best_k = torch.empty((G,), dtype=torch.int32, device=uv_p.device)
+    best_d = torch.empty((G,), dtype=torch.float32, device=uv_p.device)
     err = _build.lib().slam_guided_match_banded(
         _build.ptr(uv_p), _build.ptr(gate_p), _build.ptr(obs_desc), _build.ptr(obs_valid),
-        _build.ptr(kp_uv), _build.ptr(kp_desc), _build.ptr(kp_ok), _build.ptr(starts),
-        _build.ptr(n_active_tiles), _build.ptr(best_k), _build.ptr(best_d), P, O, D, K,
-        tile_p, tile_k, band_tiles, float(radius_px * radius_px), _build.stream(uv_p.device),
+        _build.ptr(p_sel), _build.ptr(kp_uv), _build.ptr(kp_desc), _build.ptr(kp_ok),
+        _build.ptr(starts), _build.ptr(n_active_tiles), _build.ptr(best_k), _build.ptr(best_d),
+        P, G, O, D, K, tile_p, tile_k, band_tiles, float(radius_px * radius_px),
+        _build.stream(uv_p.device),
     )
     _build.check(err, "guided_match_stage1_banded")
     global launches

@@ -128,10 +128,10 @@ def _pad(x: torch.Tensor, n: int, fill) -> torch.Tensor:
 class BandPlan(NamedTuple):
     """The banded search's inputs to kernel K5 and what maps them back."""
 
-    k5_args: tuple  # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok (sorted), starts
+    k5_args: tuple  # uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts
     n_act: torch.Tensor  # 0-d int64: point tiles holding gated points
     fits: torch.Tensor  # 0-d bool: every band fits and the gated points fit in G rows
-    p_sel: torch.Tensor  # [G] sorted row -> padded point slot
+    p_sel: torch.Tensor  # [G] sorted row -> padded point slot (>= P: padding)
     kp_order: torch.Tensor  # [Kp] sorted keypoint -> original index (0 for padding)
 
 
@@ -141,7 +141,8 @@ def band_plan(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, *, radiu
 
     Points sort gated-first by projected y, keypoints by y (stable sorts, as
     jnp.argsort: the sorted order decides ties). Only the first G sorted
-    rows can be active (G = P/2 at P >= 8192), so only they are gathered.
+    rows can be active (G = P/2 at P >= 8192); K5 reads the point rows
+    through p_sel, so none are gathered here.
     Each point tile's band starts at the keypoint tile holding its lowest y
     minus the radius; it fits when `band_tiles` tiles reach its highest y
     plus the radius."""
@@ -160,11 +161,10 @@ def band_plan(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, *, radiu
     kp_order = torch.argsort(kp_y, stable=True)
     kp_y_s = _pad(kp_y[kp_order], pad_k, far)
 
-    # Points sorted gated-first by projected y; padding rows are ungated
-    # (and read row P-1, which no gate lets through).
+    # Points sorted gated-first by projected y; padding rows (>= P) are
+    # ungated.
     p_y = _pad(torch.where(gate_p, uv_p[:, 1], torch.full_like(uv_p[:, 1], far)), pad_p, far)
     p_sel = torch.argsort(p_y, stable=True)[:G]
-    src = torch.clamp(p_sel, max=P - 1)
 
     # Per point tile: the keypoint band covering its y-range +- the radius.
     y_t = p_y[p_sel].reshape(n_tiles, tile_p)
@@ -179,7 +179,7 @@ def band_plan(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, *, radiu
     start = torch.clamp(start, 0, n_k - band_tiles).to(torch.int32)
     n_gated = gate_p.sum()
     return BandPlan(
-        k5_args=(uv_p[src], _pad(gate_p, pad_p, False)[p_sel], obs_desc[src], obs_valid[src],
+        k5_args=(uv_p, gate_p, obs_desc, obs_valid, p_sel.to(torch.int32),
                  _pad(kp_uv[kp_order], pad_k, 1e7), _pad(kp_desc[kp_order], pad_k, 0),
                  _pad(kp_ok[kp_order], pad_k, False), start),
         n_act=(n_gated + tile_p - 1) // tile_p,

@@ -16,6 +16,18 @@ the same frames. To run another checkout (an older commit unpacked under
 ``build/``, say), run this file from that checkout's root with
 ``PYTHONPATH=.``: it imports ``chip_smoke`` and the port from the
 directory it is run in.
+
+``--bootstrap DIR`` runs each seed from the bootstrapped state the JAX
+package exported for it (``DIR/jax_boot_seed<S>.npz``, written by
+``tests/learned_reference.py --export DIR``) instead of the port's own:
+the port bootstraps as usual (so its frame counters advance the same way,
+asserted), then tracks from the JAX package's state. The two packages draw
+their two-view RANSAC hypotheses from different generators by design; this
+takes that draw out of a comparison of their trajectories.
+
+``--slam-seeds 0,1,...`` runs each world once for each seed of the
+port's own bootstrap generator (``Slam(seed=...)``, 0 by default): the
+spread of the readings over the two-view RANSAC draw alone.
 """
 
 from __future__ import annotations
@@ -69,11 +81,62 @@ def worlds(seeds: list, n_frames: int, cache: Path | None) -> dict:
     return out
 
 
+def jax_bootstrap(path: Path):
+    """The exported JAX SlamState (dotted leaf names) as nested namespaces,
+    which utils.convert.state_from_numpy takes."""
+    from types import SimpleNamespace
+
+    root: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = root
+            *parents, leaf = key.split(".")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = z[key]
+
+    def ns(d):
+        return SimpleNamespace(**{k: ns(v) if isinstance(v, dict) else v for k, v in d.items()})
+
+    return ns(root)
+
+
+def tracking_from(state):
+    """Within the block, Slam.initialize() bootstraps and then replaces the
+    state by `state` (a JAX SlamState with numpy leaves)."""
+    import contextlib
+
+    from racing_slam_tpu_torch.slam.pipeline import Slam
+    from racing_slam_tpu_torch.utils.convert import state_from_numpy
+
+    own = Slam.initialize
+
+    def initialize(self):
+        ok = own(self)
+        frames = int(self.state.frame_count)
+        self.state = state_from_numpy(state, device=self.device)
+        assert int(self.state.frame_count) == frames, "bootstraps ended at different frames"
+        return ok
+
+    @contextlib.contextmanager
+    def patched():
+        Slam.initialize = initialize
+        try:
+            yield
+        finally:
+            Slam.initialize = own
+
+    return patched()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="learned")
     ap.add_argument("--seeds", default="3")
     ap.add_argument("--worlds", type=Path, default=None, help="directory of rendered worlds")
+    ap.add_argument("--bootstrap", type=Path, default=None,
+                    help="directory of JAX bootstrapped states (tests/learned_reference.py)")
+    ap.add_argument("--slam-seeds", default="0", help="seeds of the port's bootstrap generator")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())  # this checkout's chip_smoke and port
 
@@ -100,9 +163,16 @@ def main() -> int:
     keep = ("ate_pct", "coverage", "reinits", "eof_on_reinit", "commits", "keyframes",
             "tracked", "syncs_per_tracked_frame", "fps")
     for s in seeds:
-        res = cs.run_path(args.path, dev, kernels, _camera(), *world[s])
-        print("path_seeds " + json.dumps(dict(tree=os.path.basename(os.getcwd()), path=args.path,
-                                              seed=s, **{k: res[k] for k in keep})), flush=True)
+        for g in [int(x) for x in args.slam_seeds.split(",")]:
+            if args.bootstrap is None:
+                res = cs.run_path(args.path, dev, kernels, _camera(), *world[s], slam_seed=g)
+            else:
+                with tracking_from(jax_bootstrap(args.bootstrap / f"jax_boot_seed{s}.npz")):
+                    res = cs.run_path(args.path, dev, kernels, _camera(), *world[s], slam_seed=g)
+            print("path_seeds " + json.dumps(dict(
+                tree=os.path.basename(os.getcwd()), path=args.path, seed=s, slam_seed=g,
+                bootstrap="port" if args.bootstrap is None else "jax",
+                **{k: res[k] for k in keep})), flush=True)
     return 0
 
 

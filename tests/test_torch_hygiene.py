@@ -90,7 +90,8 @@ CASES = {
     "K5": (k5, "guided_match_stage1_banded", "guided_match_stage1_banded_reference",
            "slam_guided_match_banded",
            lambda: (_meta((512, 2)), _meta((512,), torch.bool),
-                    _meta((512, 8, 128), torch.bfloat16), _meta((512, 8), torch.bool), _meta((1024, 2)), _meta((1024, 128)),
+                    _meta((512, 8, 128), torch.bfloat16), _meta((512, 8), torch.bool),
+                    _meta((512,), torch.int32), _meta((1024, 2)), _meta((1024, 128)),
                     _meta((1024,), torch.bool), _meta((2,), torch.int32),
                     _meta((), torch.int32)), dict(radius_px=28.0)),
     "K6": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha",

@@ -59,6 +59,38 @@ def test_k1_kernel_matches_twin(cuda, shape, masked):
     np.testing.assert_allclose(got[1][both], want[1][both], atol=2e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("shape", [(480, 640), (720, 1280), (2, 480, 640), (100, 330),
+                                   (20, 30)],
+                         ids=["640x480", "1280x720", "batch2", "ragged", "below_halo"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_tiles_match_twin(cuda, shape, masked):
+    """The redesigned K1 at chip_smoke.check_frontend's tolerances (peak
+    status may differ on at most 1e-4 of the pixels): the main-path frame,
+    720p, two frames at once, a frame whose sides are not whole tiles
+    (100 x 330 against 80 x 32) and one smaller than the 13 px halo, with
+    and without the mask (the bench's shape: bottom fifth and top twelfth
+    blocked, scaled to the frame)."""
+    rng = np.random.default_rng(3)
+    H, W = shape[-2:]
+    img = np.stack([_texture(rng, H, W) for _ in range(shape[0])]) if len(shape) == 3 \
+        else _texture(rng, H, W)
+    m = np.ones((H, W), np.float32)
+    m[-max(H // 5, 1):, :] = 0
+    m[: H // 12, :] = 0
+    x = torch.from_numpy(img).to(cuda)
+    mask = torch.from_numpy(m).to(cuda) if masked else None
+    got = [t.cpu().numpy() for t in k1.corner_frontend_fused(x, mask)]
+    want = [t.cpu().numpy() for t in k1.corner_frontend_fused_reference(x, mask)]
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-5)
+    assert np.mean((got[1] > 0) != (want[1] > 0)) <= 1e-4
+    both = (got[1] > 0) & (want[1] > 0)
+    np.testing.assert_allclose(got[1][both], want[1][both], atol=2e-5, rtol=1e-4)
+    if masked:
+        assert got[0][..., m == 0].max() == 0.0
+    assert (got[1] > 0).sum() > (0 if H < 30 else 20)
+
+
 @pytest.mark.parametrize("O,D,K", [(3, 32, 100), (8, 128, 700), (5, 64, 257), (8, 256, 700),
                                    (4, 224, 300)])
 def test_k2_kernel_matches_twin(cuda, O, D, K):
@@ -119,7 +151,7 @@ def test_k5_kernel_matches_twin(cuda, D):
                           uv_p[:, 1].reshape(-1, tile_p).mean(1)) // tile_k
     starts = np.clip(mid - 1, 0, K // tile_k - band).astype(np.int32)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
-        uv_p, gate, obs, ov, kp_uv, kp, kp_ok, starts)]
+        uv_p, gate, obs, ov, np.arange(P, dtype=np.int32), kp_uv, kp, kp_ok, starts)]
     args[2] = args[2].to(torch.bfloat16)
     args.append(torch.tensor(3, dtype=torch.int32, device=cuda))
     bk, bd = [t.cpu().numpy() for t in k5.guided_match_stage1_banded(*args, radius_px=20.0)]
@@ -157,6 +189,98 @@ def test_banded_stage1_falls_back_on_the_device(cuda, P, point_rows, fits):
     same = bk[hit] == rk[hit]
     assert same.mean() >= 0.99
     np.testing.assert_allclose(bd[hit][same], rd[hit][same], atol=1e-5)
+
+
+def _k5_case(rng, case):
+    """Unsorted map and frame data for one K5 case, with its tiling: K5
+    runs on band_plan's sorted keypoints and reads the points through its
+    p_sel (sorted gated-first by y, padded past P)."""
+    tiles = dict(radius_px=20.0, tile_p=256, tile_k=512, band_tiles=4)
+    P, O, D, K, W, H, rows = 1000, 8, 128, 2400, 640, 480, 480.0
+    if case == "d256":
+        D = 256
+    elif case == "last_tile":
+        rows = None  # the points in the bottom 60 rows
+        tiles["band_tiles"] = 2
+    elif case == "prune_720p":
+        P, K, W, H = 16384, 7200, 1280, 720
+        tiles.update(radius_px=28.0, band_tiles=3)
+    kp_uv = np.stack([rng.uniform(0, W, K), rng.uniform(0, H, K)], -1).astype(np.float32)
+    kp = rng.standard_normal((K, D)).astype(np.float32)
+    kp /= np.linalg.norm(kp, axis=-1, keepdims=True)
+    kp_ok = rng.uniform(size=K) < 0.9
+    for i in range(0, 60, 2):  # exact ties, half a pixel apart
+        kp[i + 1], kp_uv[i + 1] = kp[i], kp_uv[i] + 0.5
+        kp_ok[i] = kp_ok[i + 1] = True
+    if case == "equal_y":  # one long run: 400 keypoints on one row
+        kp_uv[100:500, 1] = 240.0
+    if case == "invalid_between":  # every third keypoint ungated, between valid ones in y
+        kp_ok[60::3] = False
+    near = np.nonzero(kp_uv[:, 1] >= H - 60)[0] if rows is None else np.arange(K)
+    src = rng.choice(near, P)
+    if case == "equal_y":
+        src[: P // 2] = rng.integers(100, 500, P // 2)
+    obs = kp[src][:, None] + 0.2 * rng.standard_normal((P, O, D)).astype(np.float32)
+    obs /= np.linalg.norm(obs, axis=-1, keepdims=True)
+    uv_p = (kp_uv[src] + rng.uniform(-5, 5, (P, 2))).astype(np.float32)
+    if case == "equal_y":
+        uv_p[: P // 2, 1] = 240.0
+    gate = rng.uniform(size=P) < 0.8
+    if case == "prune_720p":
+        gate = np.zeros(P, bool)
+        gate[rng.choice(P, 6000, replace=False)] = True
+    return (uv_p, gate, obs, rng.uniform(size=(P, O)) < 0.7, kp_uv, kp, kp_ok), tiles
+
+
+@pytest.mark.parametrize("case", ["equal_y", "invalid_between", "last_tile", "inactive", "d256",
+                                  "prune_720p"])
+def test_k5_run_cases_match_twin(cuda, case):
+    """The redesigned K5 against its twin on band_plan's own inputs, so that
+    it reads the points through a p_sel that is not the identity, at
+    chip_smoke.check_match_banded's tolerances: best_d to 1e-5 everywhere,
+    the keypoint on >= 99.9 % of the matched rows, every planted tie (two
+    equal descriptors half a pixel apart) to the lower sorted index,
+    unmatched rows (0, 1e9). On 640x480 with K=2400 (5 keypoint tiles) and
+    bands of 4 tiles: 400 keypoints on one row with half the points on it
+    (a run of 400); every third keypoint ungated; the points in the bottom
+    rows with bands of 2, so that their bands end at the last keypoint
+    tile; only the first of the active tiles switched on (the others must
+    write (0, 1e9) untouched); D=256; 1280x720 with K=7200, where a band of
+    3 of the 15 keypoint tiles holds each point tile's candidates."""
+    rng = np.random.default_rng(21)
+    data, tiles = _k5_case(rng, case)
+    args = [torch.from_numpy(a).to(cuda) for a in data]
+    args[2] = args[2].to(torch.bfloat16)
+    plan = matching.band_plan(*args, **tiles)
+    assert bool(plan.fits)
+    n_act = plan.n_act.to(torch.int32)
+    if case == "inactive":
+        assert int(n_act) >= 3
+        n_act = torch.ones_like(n_act)
+    p_sel = plan.k5_args[4].cpu().numpy()
+    assert not np.array_equal(p_sel, np.arange(len(p_sel)))
+    if case == "last_tile":
+        n_k = plan.k5_args[5].shape[0] // tiles["tile_k"]
+        assert int(plan.k5_args[8][0]) == n_k - tiles["band_tiles"]
+    kargs = (*plan.k5_args, n_act)
+    bk, bd = [t.cpu().numpy() for t in k5.guided_match_stage1_banded(*kargs, **tiles)]
+    rk, rd = [t.cpu().numpy() for t in k5.guided_match_stage1_banded_reference(*kargs, **tiles)]
+    hit = rd < 1e9
+    assert hit.sum() > (100 if case == "inactive" else 400)
+    assert np.abs(bd - rd).max() <= 1e-5
+    assert (bk[hit] == rk[hit]).mean() >= 0.999
+    np.testing.assert_array_equal(bk[~hit], 0)
+    np.testing.assert_array_equal(bd[~hit], 1e9)
+    if case == "inactive":
+        assert not hit[tiles["tile_p"]:].any()
+    # Planted ties: the twin's choice is the lower sorted index of a pair.
+    pos = np.empty(plan.kp_order.shape[0], np.int64)
+    order = plan.kp_order.cpu().numpy()
+    pos[order[: len(data[4])]] = np.arange(len(data[4]))
+    lower = np.minimum(pos[0:60:2], pos[1:60:2])
+    ties = np.isin(rk, lower) & hit
+    assert ties.sum() > 0
+    np.testing.assert_array_equal(bk[ties], rk[ties])
 
 
 def _rot(w):

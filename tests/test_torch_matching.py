@@ -151,8 +151,9 @@ def test_k5_twin_matches_pallas_interpret(rng):
     exactly."""
     tiles = dict(tile_p=64, tile_k=128, band_tiles=2)
     args = _banded_inputs(rng)
-    bk, bd = guided_match_stage1_banded_reference(*[torch.from_numpy(np.asarray(a)) for a in args],
-                                                  radius_px=20.0, **tiles)
+    targs = [torch.from_numpy(np.asarray(a)) for a in args]
+    targs.insert(4, torch.arange(len(args[0]), dtype=torch.int32))  # the rows as they are
+    bk, bd = guided_match_stage1_banded_reference(*targs, radius_px=20.0, **tiles)
     jk, jd = guided_match_stage1_banded(*[jnp.asarray(a) for a in args], radius_px=20.0,
                                         interpret=True, **tiles)
     bk, bd, jk, jd = bk.numpy(), bd.numpy(), np.asarray(jk), np.asarray(jd)
@@ -169,6 +170,84 @@ def test_k5_twin_matches_pallas_interpret(rng):
     assert none[-64:].all()
     np.testing.assert_array_equal(bk[none], 0)
     np.testing.assert_array_equal(bd[none], 1e9)
+
+
+def test_k5_twin_reads_rows_through_p_sel(rng):
+    """K5's contract reads the point rows through p_sel: on unsorted rows
+    and a p_sel that sorts them and pads them past P (the padding rows
+    ungated), the twin equals the twin on the rows gathered by hand, bit for
+    bit (the same arithmetic on the same values)."""
+    tiles = dict(radius_px=20.0, tile_p=64, tile_k=128, band_tiles=2)
+    args = _banded_inputs(rng)
+    uv_p, gate, obs, obs_valid = args[:4]
+    P, G = len(uv_p) - 20, len(uv_p)  # 20 padding rows
+    perm = rng.permutation(G)
+    rows = np.argsort(perm)  # row g of the sorted order sits in slot rows[g] ...
+    p_sel = rows.astype(np.int32)
+    pad = p_sel >= P
+    gate = gate.copy()
+    gate[pad] = False  # ... and the sorted rows that land in padding are ungated
+    slots = [np.zeros((P,) + a.shape[1:], a.dtype) for a in (uv_p, gate, obs, obs_valid)]
+    for s_, a in zip(slots, (uv_p, gate, obs, obs_valid)):
+        s_[p_sel[~pad]] = a[~pad]
+    kp_starts = [torch.from_numpy(np.asarray(a)) for a in args[4:]]
+    got = guided_match_stage1_banded_reference(*[torch.from_numpy(a) for a in slots],
+                                               torch.from_numpy(p_sel), *kp_starts, **tiles)
+    want = guided_match_stage1_banded_reference(
+        *[torch.from_numpy(a) for a in (uv_p, gate, obs, obs_valid)],
+        torch.arange(G, dtype=torch.int32), *kp_starts, **tiles)
+    assert (want[1].numpy() < 1e9).sum() > 80 and pad.sum() == 20
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[1].numpy()[pad], 1e9)
+
+
+@pytest.mark.parametrize("case", ["uniform", "equal_y", "invalid_between", "on_the_radius",
+                                  "far_rows"])
+def test_k5_run_holds_every_pair_within_the_radius(rng, case):
+    """tests/match_band_model.py, the kernel's run search in float32: the
+    keypoints it walks hold every keypoint whose pair passes the pixel gate
+    (the brute-force set over the band), and what passes on the walk is
+    exactly that set. Cases: uniform keypoints; 300 keypoints on one y (one
+    long run); invalid keypoints whose y lies between valid ones (their key
+    is +inf, so they sort last); points placed at the radius and an ulp
+    either side of it; positions near 1e4 px, where an ulp is ~1e-3 px."""
+    from match_band_model import band_keys, run
+
+    K, r = 1500, 28.0
+    kp_uv = np.stack([rng.uniform(0, 640, K), rng.uniform(0, 480, K)], -1).astype(np.float32)
+    kp_ok = rng.uniform(size=K) < 0.9
+    uv = kp_uv[rng.integers(0, K, 400)] + rng.uniform(-30, 30, (400, 2)).astype(np.float32)
+    if case == "equal_y":
+        kp_uv[:300, 1] = 200.0
+        uv[:200, 1] = 200.0 + rng.uniform(-1, 1, 200)
+    elif case == "invalid_between":
+        kp_ok[::3] = False
+    elif case == "on_the_radius":
+        src = rng.integers(0, K, 400)
+        ang = rng.uniform(0, 2 * np.pi, 400)
+        uv = (kp_uv[src] + r * np.stack([np.cos(ang), np.sin(ang)], -1)).astype(np.float32)
+        uv[::3, 1] = kp_uv[src[::3], 1] + np.float32(r)  # straight above: dv = r
+        uv[1::3, 1] = np.nextafter(uv[1::3, 1], np.float32(np.inf))
+    elif case == "far_rows":
+        kp_uv = (kp_uv + 1e4).astype(np.float32)
+        uv = (uv + 1e4).astype(np.float32)
+    uv = uv.astype(np.float32)
+    order = np.argsort(np.where(kp_ok, kp_uv[:, 1], 1e8), kind="stable")
+    kp_uv, kp_ok = kp_uv[order], kp_ok[order]
+    keys = band_keys(kp_uv, kp_ok)
+    assert (np.diff(keys[np.isfinite(keys)]) >= 0).all()
+    r2 = np.float32(r * r)
+    n_pass = 0
+    for p in uv:
+        d = p[None, :] - kp_uv
+        brute = np.nonzero(kp_ok & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] <= r2))[0]
+        walked, passed = run(keys, kp_uv, p, r * r)
+        assert set(brute) <= set(walked)
+        assert sorted(passed) == brute.tolist()
+        assert len(walked) <= len(brute) + 2 * 32 + np.sum(np.abs(keys - p[1]) <= r + 1)
+        n_pass += len(brute)
+    assert n_pass > 400
 
 
 def _map_args(rng, P=300, K=1100, point_mask=None, kp_m=None, pt_m=None, grow_to=None):

@@ -327,6 +327,60 @@ def test_learned_path_tracks():
     assert slam.host_syncs["track"] == slam.frames_tracked
 
 
+def test_learned_step_matches_jax():
+    """One learned tracking step from the same state on the port's twins and
+    on the JAX package (tests/test_torch_pipeline.py's classical one-step
+    test on the learned path): SuperPoint extraction on the committed
+    weights, the guided map->frame match at D=256 and motion BA, from the
+    JAX state after the bootstrap and three steps of a 320x240 sequence
+    (constant-velocity prediction: no random draws). Tolerances: the same
+    SuperPoint keypoint within 0.05 px on >= 99 % (test_superpoint_extract_
+    matches_jax); the chosen map point on >= 97 % of the keypoints that
+    either side matched (a keypoint that moved, or a near-tie of the bf16
+    distances, may flip);
+    the pose to 1e-4 rad and 1e-3 units, as the classical step; the
+    keyframe decision exactly and the inlier count within 2 %."""
+    import dataclasses
+
+    from racing_slam_tpu.ops.camera import Camera as JaxCamera
+    from racing_slam_tpu.slam import pipeline as jp
+    from racing_slam_tpu.slam.config import SlamConfig as JaxSlamConfig
+    from racing_slam_tpu.utils.video import ArraySource as JaxArraySource
+    from racing_slam_tpu_torch.slam import pipeline as tp
+
+    cam = _cam()
+    seq = make_sequence(np.random.default_rng(3), n_frames=10, cam=cam, n_sprites=140,
+                        step_t=np.array([0.10, 0.01, 0.16], np.float32))
+    cfg = _cfg(matcher="lightglue", lightglue_threshold=0.2, pose_prediction="constant_velocity",
+               match_radius_px=28.0, keyframe_match_ratio=0.8, reproj_monitor_every=0)
+    jslam = jp.Slam(JaxCamera(*cam), JaxArraySource(seq.frames),
+                    JaxSlamConfig(**dataclasses.asdict(cfg)),
+                    frontend=jsp.SuperPointFrontend(params=jsp.load_params(
+                        WEIGHTS / "superpoint.npz")))
+    assert jslam.initialize()
+    jslam.run(3)
+    st = jslam.state
+    img = np.clip(seq.frames[int(st.frame_count)] * 255.0, 0, 255).astype(np.uint8)
+    jst, jinfo = jslam._step(st, jnp.asarray(img), jax.random.PRNGKey(0), None)
+    fe = tsp.SuperPointFrontend(params=tsp.load_params(WEIGHTS / "superpoint.npz", device="cpu"),
+                                device="cpu")
+    tslam = Slam(cam, ArraySource(seq.frames), cfg, frontend=fe, device="cpu")
+    tst, tinfo = tp.slam_step(state_from_numpy(jax.tree.map(np.asarray, st), device="cpu"),
+                              torch.from_numpy(img), None, cam=cam, cfg=cfg,
+                              frontend=tslam.frontend)
+    jxy, txy = np.asarray(jst.last_feat.xy), tst.last_feat.xy.numpy()
+    assert np.all(np.abs(jxy - txy) < 0.05, axis=-1).mean() >= 0.99
+    jm, tm = np.asarray(jst.last_matches), tst.last_matches.numpy()
+    assert (jm >= 0).sum() > 50
+    either = (jm >= 0) | (tm >= 0)  # keypoints that either side matched
+    agree = (jm[either] == tm[either]).mean()
+    assert agree >= 0.97, agree
+    np.testing.assert_allclose(tst.last_rvec.numpy(), np.asarray(jst.last_rvec), atol=1e-4)
+    np.testing.assert_allclose(tst.last_t.numpy(), np.asarray(jst.last_t), atol=1e-3)
+    assert tinfo.is_keyframe == bool(jinfo.is_keyframe)
+    assert abs(tinfo.n_inliers - int(jinfo.n_inliers)) <= 0.02 * int(jinfo.n_inliers)
+
+
 def test_lightglue_variant_tracks():
     """The classical frontend with LightGlue on the 128-d weights (the
     `lightglue` bench variant); the bar of
