@@ -30,9 +30,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      (K1-K3, window BA and refinement). On the 150-frame world of seed 3
      (bench.py --frames 150), `scale`: bench.py --map-capacity 16384
      --match-backend banded (K1, K3, K5, with K2 as the device-side dense
-     fallback). Each is held to ATE <= 10 % and coverage >= 0.85 and one
-     host read per tracked frame, and every kernel of the path must have
-     run; `scale` prints how often the band did not fit.
+     fallback). On the 304-frame world, the pose predictions of
+     `bench.py --prediction adaptive` (`adaptive`) and `bench.py
+     --essential` (`essential`, the essential-matrix prediction every
+     frame), classical configuration, W=1, no refinement (K1-K4). Each is
+     held to ATE <= 10 % and coverage >= 0.85 and one host read per
+     tracked frame, and every kernel of the path must have run; `scale`
+     prints how often the band did not fit, the prediction paths how many
+     frames took the essential prediction (`essential`: every one). When
+     `adaptive` takes it on no frame, a run of its first 96 tracked frames
+     with a threshold above any inlier count must take it on every frame,
+     with one host read a frame and finite poses;
+  5. the command line, `python -m racing_slam_tpu_torch --synthetic
+     --synthetic-frames 96 --out build/cli_smoke --checkpoint-every 4
+     --quiet`, in a subprocess on the card: exit 0, its artifacts, the ATE
+     of its trajectory.tum against the rendered world's ground truth
+     <= 10 % of the trajectory length; then `--resume` from its state.npz
+     for 16 frames: exit 0 and "resumed from ... (kf=N)" with the saved N.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -879,7 +893,14 @@ PATHS = {
     "headline": ("classical", "classical", N_FRAMES, HEADLINE, CLASSICAL),
     "scale": ("classical", "classical", SCALE_FRAMES, SCALE,
               CLASSICAL + ("guided_match_stage1_banded",)),
+    # bench.py --prediction adaptive / --essential (bench.py:367-382).
+    "adaptive": ("classical", "classical", N_FRAMES, dict(pose_prediction="adaptive"), CLASSICAL),
+    "essential": ("classical", "classical", N_FRAMES, dict(essential_matrix_estimation=True),
+                  CLASSICAL),
 }
+# The adaptive path's check when seed 3 never starves it: this many tracked
+# frames with every frame below the threshold.
+FORCED_ADAPTIVE_FRAMES = 96
 
 
 # The port's kernels by the name of their __global__ functions (K6 is
@@ -928,26 +949,61 @@ def profile_path(slam, frames: list, n: int) -> dict:
                 kernels={k: round(v, 3) for k, v in sorted(ours.items())})
 
 
-def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
-             profile_frames: int = 0, slam_seed: int = 0) -> dict:
-    import torch
-
+def path_config(path: str, **extra):
+    """bench.py's configuration, by default with local_ba_window=1 and
+    refine_every_frames=0, with the path's overrides; bench.py --variant
+    learned|lightglue set matcher="lightglue" (threshold 0.35)."""
     from racing_slam_tpu_torch.slam.config import SlamConfig
-    from racing_slam_tpu_torch.slam.pipeline import Slam
-    from racing_slam_tpu_torch.utils.video import ArraySource
 
-    frontend_kind, matcher, _, overrides, needed = PATHS[path]
-    # bench.py's configuration, by default with local_ba_window=1 and
-    # refine_every_frames=0; bench.py --variant learned|lightglue set
-    # matcher="lightglue" (threshold 0.35).
-    cfg = SlamConfig(**{**dict(
+    _, matcher, _, overrides, _ = PATHS[path]
+    return SlamConfig(**{**dict(
         match_radius_px=28.0, ransac_threshold_px=0.4, cull_reproj_px=3.0, inlier_px=3.0,
         triangulation_reproj_px=2.0, pose_prediction="constant_velocity",
         triangulate_points=True, bundle_adjust=True, optimize_pose=True, cull_points=True,
         max_keyframes=32, map_capacity=4096, max_observations=8, archive_capacity=512,
         reproj_monitor_every=0, refine_every_frames=0, local_ba_window=1,
         keyframe_match_ratio=0.8, matcher=matcher,
-    ), **overrides})
+    ), **overrides, **extra})
+
+
+def run_forced_adaptive(dev, cam, frames: list, gt: np.ndarray) -> dict:
+    """The adaptive path over its first FORCED_ADAPTIVE_FRAMES tracked
+    frames with adaptive_pred_inliers above any inlier count: every tracked
+    frame must take the essential prediction, with one host read a frame
+    and finite poses; reports the ATE."""
+    import torch
+
+    from racing_slam_tpu_torch.slam.pipeline import Slam
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    slam = Slam(cam, ArraySource(frames), path_config("adaptive", adaptive_pred_inliers=1 << 30),
+                device=dev)
+    assert slam.initialize(), "forced adaptive: bootstrap failed"
+    t0 = time.time()
+    n = slam.run_batched(max_frames=FORCED_ADAPTIVE_FRAMES, batch=BATCH)
+    torch.cuda.synchronize()
+    t_track = time.time() - t0
+    acc = full_trajectory_ate(slam, gt, len(frames))
+    res = dict(frames=n, tracked=slam.frames_tracked,
+               essential_predictions=slam.essential_predictions,
+               host_syncs=slam.host_syncs, fps=n / t_track, reinits=slam.n_reinits,
+               ate_pct=100 * acc["ate"] / acc["length"], keyframes=acc["n_kf"])
+    log("adaptive, forced to the essential prediction: " + json.dumps(res))
+    assert slam.essential_predictions == slam.frames_tracked == n, res
+    assert slam.host_syncs["track"] == slam.frames_tracked, res
+    assert np.isfinite(slam.poses(include_archived=True)).all(), "non-finite keyframe pose"
+    return res
+
+
+def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
+             profile_frames: int = 0, slam_seed: int = 0) -> dict:
+    import torch
+
+    from racing_slam_tpu_torch.slam.pipeline import Slam
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    frontend_kind, _, _, _, needed = PATHS[path]
+    cfg = path_config(path)
     frontend = superpoint_frontend(dev) if frontend_kind == "superpoint" else None
     slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev, seed=slam_seed)
     for kern in kernels:
@@ -985,6 +1041,7 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
         sync_debug_flagged=len(flagged),
         launches=launches,
         refines=len(slam.refine_costs), banded_fallbacks=fallbacks,
+        essential_predictions=slam.essential_predictions,
         keyframe_keypoints=[int(kp_valid.min()), int(kp_valid.max())],
     )
     log(f"{path}: " + json.dumps(res))
@@ -1007,8 +1064,83 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
     if fallbacks is not None:
         log(f"{path}: the band did not fit in {fallbacks} of "
             f"{launches['guided_match_stage1_banded']} banded searches (K2 answered those)")
+    if cfg.essential_matrix_estimation:
+        assert slam.essential_predictions == tracked, (slam.essential_predictions, tracked)
+    if cfg.essential_matrix_estimation or cfg.pose_prediction == "adaptive":
+        log(f"{path}: {slam.essential_predictions} of {tracked} tracked frames took the "
+            "essential-matrix prediction")
     if profile_frames:
         log(f"{path} profile: " + json.dumps(profile_path(slam, frames, profile_frames)))
+    return res
+
+
+CLI_OUT = "build/cli_smoke"
+CLI_FRAMES = 96
+
+
+def tum_ate(path: str, gt_poses: np.ndarray) -> dict:
+    """ATE of a TUM trajectory (stamps = frame indices, camera centres)
+    against ground-truth world->camera poses: Sim(3)-aligned RMSE of the
+    centres, as % of the ground truth's first-to-last centre distance."""
+    from racing_slam_tpu_torch.utils.metrics import camera_centers, umeyama_sim3
+
+    rows = np.loadtxt(path, ndmin=2)
+    idx = rows[:, 0].astype(int)
+    est = rows[:, 1:4]
+    ref = camera_centers(gt_poses[idx])
+    s, R, t = umeyama_sim3(est, ref)
+    err = np.linalg.norm((s * (R @ est.T)).T + t - ref, axis=-1)
+    length = float(np.linalg.norm(ref[-1] - ref[0]))
+    return dict(keyframes=len(idx), last_frame=int(idx[-1]),
+                ate_pct=100 * float(np.sqrt((err ** 2).mean())) / length)
+
+
+def run_cli() -> dict:
+    """The command line in a subprocess on the card (the repository's
+    entry point, as a user starts it), then its --resume; the ground truth
+    is rendered here while the first run works."""
+    import shutil
+    from pathlib import Path
+
+    from racing_slam_tpu_torch.ops.camera import Camera
+    from racing_slam_tpu_torch.utils.synthetic import make_sequence
+
+    root = Path(__file__).resolve().parent
+    out = root / CLI_OUT
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "racing_slam_tpu_torch", "--synthetic", "--synthetic-frames",
+           str(CLI_FRAMES), "--out", CLI_OUT, "--checkpoint-every", "4", "--quiet"]
+    t0 = time.time()
+    with subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True) as proc:
+        # The CLI's synthetic world (run.py): seed 0, 640x480, 260 sprites.
+        cam = Camera(fx=480.0, fy=480.0, cx=320.0, cy=240.0, width=640, height=480)
+        gt = make_sequence(np.random.default_rng(0), n_frames=CLI_FRAMES, cam=cam, n_sprites=260,
+                           step_t=np.array([0.05, 0.005, 0.10], np.float32)).poses
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+    wall = time.time() - t0
+    assert proc.returncode == 0, f"CLI exited {proc.returncode}: {stderr[-3000:]}"
+    for name in ("metrics.jsonl", "map.ply", "trajectory.tum", "state.npz"):
+        assert (out / name).exists(), f"CLI artifact missing: {name}"
+    log("cli: " + " | ".join(line for line in stdout.splitlines()
+                             if line.startswith(("Initialized", "processed", "ATE", "note"))))
+    acc = tum_ate(str(out / "trajectory.tum"), gt)
+    frames = len((out / "metrics.jsonl").read_text().splitlines())
+    num_kf = int(np.load(out / "state.npz")["num_kf"])
+    res = dict(wall_s=wall, frames=frames, saved_num_kf=num_kf, **acc)
+    assert acc["ate_pct"] <= 10.0, f"CLI: ATE {acc['ate_pct']:.2f} % > 10 %"
+
+    resume = [*cmd[:6], "--quiet", "--resume", f"{CLI_OUT}/state.npz", "--max-frames", "16"]
+    r = subprocess.run(resume, cwd=root, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, f"CLI --resume exited {r.returncode}: {r.stderr[-3000:]}"
+    want = f"resumed from {CLI_OUT}/state.npz (kf={num_kf})"
+    assert want in r.stdout, (want, r.stdout[-2000:])
+    res["resume"] = next(line for line in r.stdout.splitlines() if line.startswith("processed"))
+    log("cli: " + json.dumps(res))
     return res
 
 
@@ -1067,6 +1199,9 @@ def main() -> int:
 
     runs = {path: run_path(path, dev, kernels, cam, *world[PATHS[path][2]], args.profile)
             for path in PATHS}
+    if runs["adaptive"]["essential_predictions"] == 0:
+        run_forced_adaptive(dev, cam, *world[N_FRAMES])
+    run_cli()
     for seed in seeds[1:]:
         world_s = worlds(seed)
         for path in PATHS:

@@ -10,7 +10,9 @@ has a counterpart of the same name:
                      each with a plain-PyTorch twin that the CPU runs.
 - ``models``       : the learned path, SuperPoint and LightGlue.
 - ``slam``         : world state, frontends and the tracking pipeline.
-- ``utils``        : synthetic sequences and JAX-state conversion.
+- ``utils``        : synthetic sequences, JAX-state conversion, checkpoints,
+                     video and mask readers, timers, trajectory and map dumps.
+- ``run``          : the command line, ``python -m racing_slam_tpu_torch``.
 
 Functions take their device from the tensors they are given; the entry
 points that create state or weights default to the card and raise without

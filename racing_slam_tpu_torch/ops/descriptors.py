@@ -53,6 +53,46 @@ def _finalize(patches_flat: torch.Tensor) -> torch.Tensor:
     return desc / (torch.linalg.norm(desc, dim=-1, keepdim=True) + 1e-8)
 
 
+# Side of the window cut around each keypoint by extract_descriptors: the
+# sampling support (PATCH_SIZE * PATCH_SPACING = 24 px) + 1 px for bilinear.
+PATCH_T = 32
+
+
+def extract_descriptors(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Descriptors for keypoints anywhere in the frame (the gather form).
+
+    img: [H, W] float32, unblurred; xy: [K, 2] pixel coordinates. One
+    [T, T] window of the blurred image is gathered per keypoint, and the
+    sampling grid is two bilinear-interpolation matmuls over it. Returns
+    [K, D] unit descriptors. The frontend uses extract_descriptors_cells,
+    which cuts the windows of grid-ordered keypoints by strided views.
+    """
+    H, W = img.shape
+    S, T = PATCH_SIZE, PATCH_T
+    blurred = gaussian_blur(img, BLUR_SIGMA)
+    dev = img.device
+    lin = (torch.arange(S, device=dev, dtype=torch.float32) - (S - 1) / 2.0) * PATCH_SPACING
+    x = torch.clamp(xy[:, 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[:, 1], 0.0, H - 1.001)
+    ox = torch.clamp(torch.floor(x).long() - T // 2 + 1, 0, W - T)
+    oy = torch.clamp(torch.floor(y).long() - T // 2 + 1, 0, H - T)
+    span = torch.arange(T, device=dev)
+    patches = blurred[(oy[:, None] + span)[:, :, None], (ox[:, None] + span)[:, None, :]]
+
+    def interp(coord, origin):
+        """[K, S, T] bilinear weights of the S samples over the window."""
+        s = coord[:, None] + lin[None, :] - origin[:, None].to(torch.float32)
+        s = torch.clamp(s, 0.0, T - 1.001)
+        s0 = torch.floor(s)
+        f = (s - s0)[..., None]
+        s0i = s0.long()[..., None]
+        return (span == s0i) * (1.0 - f) + (span == s0i + 1) * f
+
+    rows = interp(y, oy) @ patches  # [K, S, T]
+    sampled = rows @ interp(x, ox).transpose(-1, -2)  # [K, S(y), S(x)]
+    return _finalize(sampled.reshape(xy.shape[0], S * S))
+
+
 def extract_descriptors_cells(
     img: torch.Tensor,
     xy: torch.Tensor,

@@ -4,13 +4,32 @@ racing_slam_tpu/ops/essential.py), batched over leading dims.
 Inputs are normalized image-plane coordinates; E satisfies x2^T E x1 = 0
 with X2 = R X1 + t. SVD signs are arbitrary, so E is defined up to sign and
 scale and decompose() enumerates all four (R, t) candidates.
+
+The 8-point algebra and the decomposition run in SOLVE_DTYPE (float64)
+and return the caller's dtype. The normal matrix A^T A squares the
+condition number, and on the card cuSOLVER's float32 eigen and SVD solvers
+lose more of the tail than LAPACK's float32 on the CPU, where the JAX
+package solves it (measured by tools/pose_probe.py; PERF.md section 6).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+
+
+SOLVE_DTYPE = torch.float64
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The singular values (1, 1, 0) and decompose()'s W on `device`, copied
+    there once (torch.tensor from host values is a synchronising copy)."""
+    sing = torch.tensor([1.0, 1.0, 0.0], dtype=dtype)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=dtype)
+    return sing.to(device), W.to(device)
 
 
 def _homogeneous(x: torch.Tensor) -> torch.Tensor:
@@ -20,6 +39,8 @@ def _homogeneous(x: torch.Tensor) -> torch.Tensor:
 def eight_point(x1: torch.Tensor, x2: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted normalized 8-point E from [..., N, 2] correspondences and
     [..., N] weights; singular values projected to (1, 1, 0)."""
+    dtype = x1.dtype
+    x1, x2, weights = x1.to(SOLVE_DTYPE), x2.to(SOLVE_DTYPE), weights.to(SOLVE_DTYPE)
     wsum = torch.sum(weights, dim=-1) + 1e-12  # [...]
     w = weights[..., None]
     m1 = torch.sum(w * x1, dim=-2) / wsum[..., None]
@@ -50,8 +71,8 @@ def eight_point(x1: torch.Tensor, x2: torch.Tensor, weights: torch.Tensor) -> to
     T2 = cond(s2, m2)
     E = T2.transpose(-1, -2) @ En @ T1
     U, _, Vh = torch.linalg.svd(E)
-    sing = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
-    return (U * sing) @ Vh
+    sing = _constants(E.device, E.dtype)[0]
+    return ((U * sing) @ Vh).to(dtype)
 
 
 def sampson_error_sq(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -67,12 +88,12 @@ def sampson_error_sq(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> tor
 
 def decompose(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """E -> four (R, t) candidates: ({R1, R1, R2, R2}, {t, -t, t, -t})."""
-    U, _, Vh = torch.linalg.svd(E)
+    dtype = E.dtype
+    U, _, Vh = torch.linalg.svd(E.to(SOLVE_DTYPE))
     U = U * torch.sign(torch.linalg.det(U))
     Vh = Vh * torch.sign(torch.linalg.det(Vh))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = _constants(E.device, SOLVE_DTYPE)[1]
     R1 = U @ W @ Vh
     R2 = U @ W.T @ Vh
     t = U[:, 2]
-    return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+    return torch.stack([R1, R1, R2, R2]).to(dtype), torch.stack([t, -t, t, -t]).to(dtype)

@@ -12,6 +12,14 @@ import torch
 import torch.nn.functional as F
 
 
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """[H, W, 3] uint8 or float (0-255) -> [H, W] float32 in [0, 1], BT.601
+    luma (the weights of cv::cvtColor's BGR2GRAY)."""
+    img = img.to(torch.float32)
+    gray = 0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]
+    return gray / 255.0
+
+
 def _conv2d(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """'same' convolution of [..., H, W] with a [kh, kw] kernel, zero padded."""
     kh, kw = kernel.shape

@@ -68,9 +68,10 @@ def estimate_relative_pose(
     Es = eight_point(x1[idx], x2[idx], ones)  # [H, 3, 3]
     errs = sampson_error_sq(Es, x1, x2)  # [H, N]
     inl = (errs < thresh_sq) & mask[None, :]
-    best = torch.argmax(torch.sum(inl, dim=-1))
+    best = torch.argmax(torch.sum(inl, dim=-1)).reshape(1)
 
-    E = Es[best]
+    # index_select, not Es[best]: indexing by a 0-d tensor reads it on the host.
+    E = Es.index_select(0, best)[0]
     for _ in range(4):
         err = sampson_error_sq(E, x1, x2)
         w = torch.where(mask, thresh_sq / (thresh_sq + err), torch.zeros_like(err))
@@ -86,5 +87,5 @@ def estimate_relative_pose(
         torch.sum(triangulate_points(cam, eye, rels[i], uv1, uv2, mask=inliers).valid)
         for i in range(4)
     ])
-    pose = rels[torch.argmax(counts)]
+    pose = rels.index_select(0, torch.argmax(counts).reshape(1))[0]
     return PoseEstimate(pose=pose, essential=E, inliers=inliers, num_inliers=inliers.sum())

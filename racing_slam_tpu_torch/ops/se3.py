@@ -118,6 +118,11 @@ def transform_points(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
 
 
+def transform_point(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Apply [..., 4, 4] transform to a single point [..., 3]."""
+    return torch.einsum("...ij,...j->...i", T[..., :3, :3], X) + T[..., :3, 3]
+
+
 def camera_center(T: torch.Tensor) -> torch.Tensor:
     """World-space camera center of a world->camera pose: -R^T t."""
     return -torch.einsum("...ji,...j->...i", T[..., :3, :3], T[..., :3, 3])

@@ -6,13 +6,18 @@ that the two dataclasses agree field by field). The meaning of each field,
 and the measurements behind its default, are documented there. It is a
 copy, not an import, because chip_smoke.py drives the port with no module
 of the JAX package loaded (tests/test_torch_hygiene.py holds the port to
-that). slam.pipeline.check_slice_config refuses the values of later slices
-and any `*_backend` value but "auto".
+that). slam.pipeline.check_slice_config refuses any `*_backend` value but
+"auto" (and "banded" for the matcher).
+
+`SequenceConfig` and `load_sequence_yaml` read the per-sequence YAML the
+command line takes (video, mask, fx, fy, optional cx, cy), as the JAX
+package's do; PyYAML is imported only when a file is read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +81,46 @@ class SlamConfig:
     reinit_on_lost: bool = True
     lost_check_interval: int = 4
 
-    # Periodic refinement (not in this slice) and the reprojection monitor.
+    # Periodic whole-map refinement and the reprojection monitor.
     refine_every_frames: int = 0
     refine_iters: int = 10
     refine_budget: int = 2048
     reproj_monitor_every: int = 1
+
+
+@dataclasses.dataclass
+class SequenceConfig:
+    """One sequence: its video, optional static mask, and the intrinsics;
+    cx and cy default to the image centre."""
+
+    video: str
+    fx: float
+    fy: float
+    mask: str | None = None
+    cx: float | None = None
+    cy: float | None = None
+
+
+def load_sequence_yaml(path: str | Path) -> SequenceConfig:
+    """Read a sequence YAML; relative video and mask paths are taken from
+    the YAML file's directory."""
+    import yaml
+
+    with open(path) as f:
+        d = yaml.safe_load(f)
+    base = Path(path).parent
+
+    def resolve(p):
+        if p is None:
+            return None
+        p = Path(p)
+        return str(p if p.is_absolute() else base / p)
+
+    return SequenceConfig(
+        video=resolve(d["video"]),
+        mask=resolve(d.get("mask")),
+        fx=float(d["fx"]),
+        fy=float(d["fy"]),
+        cx=float(d["cx"]) if "cx" in d else None,
+        cy=float(d["cy"]) if "cy" in d else None,
+    )

@@ -24,6 +24,10 @@ decides per site:
 - the hybrid commit cadence (pipeline.py:274, `window_ba_every > 1`): a host
   branch on the commit number, which `Slam` counts from the is_kf it
   reads anyway (arch_count + num_kf on the device).
+- the adaptive pose prediction (pipeline.py:457): a host branch on the
+  previous frame's inlier count, which that frame's one host read (or the
+  bootstrap attempt's) brought back; `Slam` keeps it and counts the frames
+  that took the essential-matrix prediction.
 - the banded matcher's dense fallback (matching.py:357): masked compute.
   K5 and K2 are both launched and a device flag lets exactly one work; the
   `Slam` sums the flags on the device (`Slam.banded_fallbacks()`).
@@ -38,8 +42,12 @@ is the classical one (kernel K1) or `models.superpoint.SuperPointFrontend`.
 The commit solves either the reference shape (`local_ba_window=1`, kernel
 K4) or a window of the W newest keyframes (`window_ba`); `Slam` runs the
 periodic whole-map refinement (`refine_every_frames`, `full_ba` over the
-compacted live map). Configuration values of later slices raise
-NotImplementedError when the driver is built.
+compacted live map). The pose prediction is constant position, constant
+velocity, essential-matrix (`essential_matrix_estimation`: frame<->frame
+match + RANSAC every frame, drawing from the `Slam`'s torch.Generator) or
+adaptive (constant position while the previous frame's inliers reach
+`adaptive_pred_inliers`, else the essential prediction rescaled to the
+last inter-frame speed).
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ from ..device import resolve_device
 from ..models import lightglue
 from ..ops import se3
 from ..ops.ba import HUBER_DELTA, BAProblem, full_ba, motion_ba, structure_ba, window_ba
-from ..ops.camera import Camera, project_with_depth
+from ..ops.camera import Camera, project, project_with_depth
 from ..ops.image import bilinear_sample
 from ..ops.matching import match_map_to_frame, unmatched_mask
 from ..ops.ransac import estimate_relative_pose
@@ -98,18 +106,14 @@ class StepInfo(NamedTuple):
     reproj_error_px: torch.Tensor
     n_inliers: int
     band_fallbacks: torch.Tensor | None = None  # banded matcher: dense fallbacks (0-2)
+    essential_prediction: bool = False  # the pose came from the essential-matrix prediction
 
 
-# Configuration values of later slices (ROADMAP.md, "Slices of the port").
-_LATER = {
-    "pose_prediction": "slice 3 (adaptive / essential-matrix prediction)",
-    "essential_matrix_estimation": "slice 3 (adaptive / essential-matrix prediction)",
-}
+PREDICTIONS = ("constant_position", "constant_velocity", "adaptive")
 
 
 def check_slice_config(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for every configuration value outside the
-    ported slice, naming the slice of ROADMAP.md that brings it.
+    """Raise ValueError for a configuration value the port does not take.
 
     The `*_backend` fields choose between XLA and Pallas in the JAX package.
     The port has no such choice: each kernel wrapper runs its CUDA kernel for
@@ -120,16 +124,13 @@ def check_slice_config(cfg: SlamConfig) -> None:
         if value != "auto" and not (field == "matching_backend" and value == "banded"):
             raise ValueError(f"{field}={value!r}: the port chooses kernel or twin by "
                              "the tensors' device; only 'auto' is accepted")
-    bad = []
-    if cfg.pose_prediction == "adaptive":
-        bad.append(("pose_prediction", cfg.pose_prediction))
-    if cfg.essential_matrix_estimation:
-        bad.append(("essential_matrix_estimation", True))
-    if bad:
-        raise NotImplementedError(
-            "not ported yet: "
-            + "; ".join(f"{k}={v!r} comes with {_LATER[k]}" for k, v in bad)
-        )
+    if cfg.pose_prediction not in PREDICTIONS:
+        raise ValueError(f"unknown pose_prediction {cfg.pose_prediction!r}")
+
+
+def _shapes(tree: tuple) -> list:
+    """The shapes of a NamedTuple tree's tensors, in field order."""
+    return [s for v in tree for s in (_shapes(v) if isinstance(v, tuple) else [v.shape])]
 
 
 def _huber(cfg: SlamConfig, cam: Camera) -> float:
@@ -304,6 +305,29 @@ def _commit_keyframe(
     )
 
 
+def _essential_prediction(state: SlamState, feat: Features, generator, uniforms, *,
+                          cam: Camera, cfg: SlamConfig, matcher, rescale: bool):
+    """Pose from the frame<->frame essential matrix composed onto the last
+    pose. With `rescale` (the adaptive mode) the relative translation, unit
+    norm from the decomposition, is scaled to the last inter-frame camera
+    displacement (JAX pipeline.py:438-455)."""
+    last = state.last_feat
+    fm = matcher(last.desc, last.xy, last.valid, feat.desc, feat.xy, feat.valid)
+    uv1 = last.xy[fm.train_idx]
+    est = estimate_relative_pose(cam, uv1, feat.xy, fm.valid, generator,
+                                 num_hypotheses=cfg.ransac_hypotheses,
+                                 threshold_px=cfg.ransac_threshold_px, uniforms=uniforms)
+    T_last = se3.pose_matrix(state.last_rvec, state.last_t)
+    rel = est.pose
+    if rescale:
+        T_prev = se3.pose_matrix(state.prev_rvec, state.prev_t)
+        speed = torch.linalg.norm(se3.camera_center(T_last) - se3.camera_center(T_prev))
+        rel_t = rel[:3, 3]
+        rel = rel.clone()
+        rel[:3, 3] = rel_t / (torch.linalg.norm(rel_t) + 1e-9) * speed
+    return se3.rt_from_matrix(se3.compose(rel, T_last))
+
+
 def slam_step(
     state: SlamState,
     img: torch.Tensor,
@@ -313,25 +337,40 @@ def slam_step(
     cfg: SlamConfig,
     frontend,
     commit_no: int | None = None,
+    generator: torch.Generator | None = None,
+    uniforms: torch.Tensor | None = None,
+    last_inliers: int | None = None,
 ) -> tuple[SlamState, StepInfo]:
     """One tracking step. `img` is an [H, W] uint8 or float32 frame on the
     state's device. Makes exactly one host read (is_kf + inlier count).
-    `commit_no`: see _commit_keyframe."""
+    `commit_no`: see _commit_keyframe. The essential-matrix prediction draws
+    its RANSAC uniforms from `generator`, or takes fixed [H, K] `uniforms`.
+    `last_inliers` is `state.last_inliers` as a host int, on which the
+    adaptive prediction branches; `Slam` passes the one it read with the
+    previous frame, and when it is None the step reads it (a second read)."""
     P = cfg.map_capacity
     if img.dtype == torch.uint8:
         img = img.to(torch.float32) * (1.0 / 255.0)
     feat = frontend.extract(img, mask)
     last_slot = state.last_kf_slot
 
-    if cfg.pose_prediction == "constant_velocity":
+    essential = cfg.essential_matrix_estimation
+    if not essential and cfg.pose_prediction == "adaptive":
+        if last_inliers is None:
+            last_inliers = int(state.last_inliers)
+        essential = last_inliers < cfg.adaptive_pred_inliers
+    if essential:
+        rvec, t = _essential_prediction(state, feat, generator, uniforms, cam=cam, cfg=cfg,
+                                        matcher=frontend.matcher,
+                                        rescale=not cfg.essential_matrix_estimation)
+    elif cfg.pose_prediction == "constant_velocity":
         # T_pred = (T_last inv(T_prev)) T_last.
         T_last = se3.pose_matrix(state.last_rvec, state.last_t)
         T_prev = se3.pose_matrix(state.prev_rvec, state.prev_t)
         rvec, t = se3.rt_from_matrix(T_last @ se3.inverse(T_prev) @ T_last)
-    elif cfg.pose_prediction == "constant_position":
+    elif cfg.pose_prediction in ("constant_position", "adaptive"):
         rvec, t = state.last_rvec, state.last_t
     else:
-        check_slice_config(cfg)
         raise ValueError(f"unknown pose_prediction {cfg.pose_prediction!r}")
 
     huber = _huber(cfg, cam)
@@ -413,6 +452,7 @@ def slam_step(
         n_inliers=int(n_inl_h),
         band_fallbacks=None if mm1.fell_back is None
         else mm1.fell_back.to(I64) + mm2.fell_back.to(I64),
+        essential_prediction=essential,
     )
     return state, info
 
@@ -595,6 +635,12 @@ class Slam:
         # its steps: one per tracking frame, one per bootstrap attempt.
         self.host_syncs = {"track": 0, "bootstrap": 0}
         self.frames_tracked = 0
+        # Frames whose pose came from the essential-matrix prediction.
+        self.essential_predictions = 0
+        # Per-frame image retention for overlays (run.py --overlay-every):
+        # off by default, it adds a device->host frame copy a step.
+        self.keep_last_image = False
+        self.last_image: np.ndarray | None = None
 
     def _lightglue_matcher(self) -> LightGlueMatcher:
         """LightGlue on the weights for the frontend's descriptor space:
@@ -660,6 +706,21 @@ class Slam:
         # Keyframes written since the bootstrap (arch_count + num_kf), kept
         # on the host from the is_kf each step reads anyway.
         self._commit_no = 0
+        # state.last_inliers on the host (the adaptive prediction's branch),
+        # from the previous frame's read or the bootstrap attempt's.
+        self._last_inliers = 0
+
+    def resume(self, state: SlamState) -> None:
+        """Continue from `state` (a checkpoint from utils.checkpoint), with
+        the host copies of its commit number and inlier count (one read).
+        Its shapes must be this engine's (capacities, keypoints, descriptor
+        dimension)."""
+        if _shapes(state) != _shapes(self.state):
+            raise ValueError("the state's shapes differ from this engine's: resume with the "
+                             "capacities it was saved with (max_keyframes, map_capacity, ...)")
+        self.state = state
+        self._commit_no, self._last_inliers = torch.stack(
+            [state.arch_count + state.num_kf, state.last_inliers]).tolist()
 
     def reset_run(self, video) -> None:
         """Reset world state AND driver bookkeeping for a fresh run."""
@@ -683,6 +744,7 @@ class Slam:
         self._arch_overflow_warned = False
         self.host_syncs = {"track": 0, "bootstrap": 0}
         self.frames_tracked = 0
+        self.essential_predictions = 0
 
     # -- public API ---------------------------------------------------------
     def initialize(self) -> bool:
@@ -706,20 +768,28 @@ class Slam:
             query_feat = self._extract(img)
             att = try_initialize(ref_feat, query_feat, self._gen, cam=self.cam, cfg=self.cfg,
                                  matcher=self.frontend.matcher)
+            # The attempt's one host read; the match count seeds the
+            # adaptive prediction's signal (commit_initialization).
+            n_tri, n_matched = torch.stack(
+                [att.n_triangulated, torch.sum(att.match_valid)]).tolist()
             self.host_syncs["bootstrap"] += 1
-            if int(att.n_triangulated) < self.cfg.min_init_points:
+            if n_tri < self.cfg.min_init_points:
                 continue
             self.state = commit_initialization(
                 self.state, ref_feat, query_feat, ref_img, att.pose, att.match_train,
                 att.match_valid, ref_index, self._frame_idx - 1, cam=self.cam, cfg=self.cfg,
             )
             self._commit_no = 2
+            self._last_inliers = n_matched
             return True
 
     def _track(self, img: torch.Tensor) -> StepInfo:
         self.state, info = slam_step(self.state, img, self._mask, cam=self.cam, cfg=self.cfg,
-                                     frontend=self.frontend, commit_no=self._commit_no)
+                                     frontend=self.frontend, commit_no=self._commit_no,
+                                     generator=self._gen, last_inliers=self._last_inliers)
         self._commit_no += info.is_keyframe
+        self._last_inliers = info.n_inliers
+        self.essential_predictions += info.essential_prediction
         if info.band_fallbacks is not None:
             self._band_fallbacks += info.band_fallbacks
         self.host_syncs["track"] += 1
@@ -773,6 +843,8 @@ class Slam:
             if img is None:
                 return None
             info = self._track(img)
+            if self.keep_last_image:
+                self.last_image = img.cpu().numpy()
             self._prefetched = self._decode_next()
             self.infos.append(info)
             self._maybe_refine(1)
@@ -926,7 +998,7 @@ class Slam:
     def _recover_lost(self) -> None:
         """Archive the segment and re-bootstrap; if the stream ends before a
         bootstrap completes, restore the archived world state."""
-        backup, backup_commit_no = self.state, self._commit_no
+        backup = self.state, self._commit_no, self._last_inliers
         self.segments.append(dict(
             poses=self.poses(include_archived=True),
             frame_indices=self.keyframe_indices(include_archived=True),
@@ -935,7 +1007,7 @@ class Slam:
         self.reset_state()
         self.n_reinits += 1
         if not self.initialize():
-            self.state, self._commit_no = backup, backup_commit_no
+            self.state, self._commit_no, self._last_inliers = backup
             self.segments.pop()
             self.n_reinits -= 1
             self.eof_on_reinit = True
@@ -988,3 +1060,20 @@ class Slam:
 
     def reprojection_error(self) -> float:
         return float(keyframe_reprojection_error(self.cam, self.state.map, self.state.kfs))
+
+    def overlay_data(self) -> dict:
+        """The last frame's overlay ingredients for utils.viz.save_overlay:
+        keypoints (NaN where invalid), the matched map points projected at
+        the frame's pose, and which keypoints matched (host copies)."""
+        st = self.state
+        valid = st.last_feat.valid.cpu().numpy()
+        matches = st.last_matches
+        pos = st.map.pos[torch.clamp(matches, min=0)]
+        proj = project(self.cam, se3.pose_matrix(st.last_rvec, st.last_t), pos)
+        return dict(
+            image=None if self.last_image is None
+            else self.last_image.astype(np.float32) / 255.0,
+            keypoints=np.where(valid[:, None], st.last_feat.xy.cpu().numpy(), np.nan),
+            projections=proj.cpu().numpy(),
+            matches_mask=valid & (matches.cpu().numpy() >= 0),
+        )

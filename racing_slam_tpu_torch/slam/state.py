@@ -259,7 +259,10 @@ def create_points(
     dev = positions.device
     order = torch.argsort((~cand_valid).to(torch.int32), stable=True)
     inv_order = torch.argsort(order)
-    slots = allocate_point_slots(m.valid, C)[inv_order]
+    # With more candidates than slots (C > P) the ranks past P take the last
+    # slot, as JAX's clamping gather does; that slot is free only when every
+    # slot is, and then those candidates are not valid (they sort last).
+    slots = allocate_point_slots(m.valid, C)[torch.clamp(inv_order, max=P - 1)]
     created = cand_valid & ~m.valid[slots]
     target = torch.where(created, slots, torch.full_like(slots, P))
 

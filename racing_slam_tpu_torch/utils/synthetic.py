@@ -35,6 +35,13 @@ def random_texture(h: int, w: int, rng: np.random.Generator, octaves: int = 4) -
     return img
 
 
+def shift_image(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """Sub-pixel translation by cubic spline (scipy), edges repeated."""
+    from scipy.ndimage import shift
+
+    return shift(img, (dy, dx), order=3, mode="nearest").astype(np.float32)
+
+
 @dataclass
 class SpriteWorld:
     """Textured quads on per-sprite planes z = depth (world frame)."""

@@ -1,12 +1,14 @@
-"""The JAX package's learned path on one seed's bench world, on the CPU, as
-the reference of the port's learned-path ATE.
+"""The JAX package's learned path (or another chip_smoke.py path) on one
+seed's bench world, on the CPU, as the reference of the port's ATE.
 
     env JAX_PLATFORMS=cpu python tests/learned_reference.py --seed 7 [--export DIR] \
-        [--slam-seed 0]
+        [--slam-seed 0] [--path learned]
 
 The configuration is chip_smoke.py's learned path (bench.py --variant
 learned --local-ba-window 1 --refine-every 0: SuperPoint on the committed
-weights, LightGlue on lightglue_superpoint.npz), the world the port's
+weights, LightGlue on lightglue_superpoint.npz), or with --path the
+configuration of that chip_smoke.py path (`chip_smoke.path_config`; the
+classical frontend unless the path is `learned`), the world the port's
 renderer makes (chip_smoke.render_bench_world, the frames bench.py
 renders). Prints one line ``learned_reference {json}`` with bench.py's
 full-trajectory ATE, coverage and re-initialisations of the run from the
@@ -55,7 +57,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--export", type=Path, default=None)
     ap.add_argument("--slam-seed", type=int, default=0)
+    ap.add_argument("--path", default="learned")
     args = ap.parse_args()
+
+    import dataclasses
 
     import jax
 
@@ -69,16 +74,10 @@ def main() -> int:
 
     t0 = time.time()
     cam = Camera(fx=480.0, fy=480.0, cx=320.0, cy=240.0, width=640, height=480)
-    frames, gt = cs.render_bench_world(args.seed, cam, cs.N_FRAMES)
-    cfg = SlamConfig(
-        match_radius_px=28.0, ransac_threshold_px=0.4, cull_reproj_px=3.0, inlier_px=3.0,
-        triangulation_reproj_px=2.0, pose_prediction="constant_velocity",
-        triangulate_points=True, bundle_adjust=True, optimize_pose=True, cull_points=True,
-        max_keyframes=32, map_capacity=4096, max_observations=8, archive_capacity=512,
-        reproj_monitor_every=0, refine_every_frames=0, local_ba_window=1,
-        keyframe_match_ratio=0.8, matcher="lightglue")
-    fe = superpoint.SuperPointFrontend(params=superpoint.load_params(
-        REPO / "racing_slam_tpu" / "weights" / "superpoint.npz"))
+    frames, gt = cs.render_bench_world(args.seed, cam, cs.PATHS[args.path][2])
+    cfg = SlamConfig(**dataclasses.asdict(cs.path_config(args.path)))
+    fe = None if cs.PATHS[args.path][0] != "superpoint" else superpoint.SuperPointFrontend(
+        params=superpoint.load_params(REPO / "racing_slam_tpu" / "weights" / "superpoint.npz"))
     slam = Slam(cam, ArraySource(frames), cfg, frontend=fe, seed=args.slam_seed)
     assert slam.initialize(), "bootstrap failed"
     if args.export is not None:
@@ -88,7 +87,8 @@ def main() -> int:
     slam.run_batched(batch=48)
     res = bench.full_trajectory_ate(slam, SimpleNamespace(poses=gt, frames=frames))
     print("learned_reference " + json.dumps(dict(
-        seed=args.seed, slam_seed=args.slam_seed, ate_pct=100 * res["ate"] / res["length"], ate=res["ate"],
+        path=args.path, seed=args.seed, slam_seed=args.slam_seed,
+        ate_pct=100 * res["ate"] / res["length"], ate=res["ate"],
         length=res["length"], coverage=res["coverage"], reinits=slam.n_reinits,
         seconds=time.time() - t0)), flush=True)
     return 0

@@ -95,6 +95,32 @@ def test_image_ops_match_jax(rng, op):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
 
 
+def test_rgb_to_gray_matches_jax(rng):
+    rgb = rng.integers(0, 256, (24, 32, 3)).astype(np.uint8)
+    for a in (rgb, rgb.astype(np.float32)):
+        got = timg.rgb_to_gray(torch.from_numpy(a)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jimg.rgb_to_gray(jnp.asarray(a))), atol=1e-6)
+
+
+def test_extract_descriptors_matches_jax(rng):
+    """The gather form at keypoints anywhere, the frame's edges and outside
+    it included: float32 sums in another order (atol 1e-5 on unit vectors)."""
+    img = random_texture(96, 128, rng)
+    xy = np.concatenate([rng.uniform(-4, [132, 100], (60, 2)),
+                         [[0, 0], [127, 95], [127.9, 95.9], [-1, 50]]]).astype(np.float32)
+    got = tdesc.extract_descriptors(torch.from_numpy(img), torch.from_numpy(xy)).numpy()
+    want = np.asarray(jdesc.extract_descriptors(jnp.asarray(img), jnp.asarray(xy)))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_shift_image_matches_jax(rng):
+    from racing_slam_tpu.utils.synthetic import shift_image as jshift
+    from racing_slam_tpu_torch.utils.synthetic import shift_image
+
+    img = random_texture(40, 56, rng)
+    np.testing.assert_array_equal(shift_image(img, 1.25, -0.5), jshift(img, 1.25, -0.5))
+
+
 def test_descriptor_projection_is_bit_identical():
     np.testing.assert_array_equal(tdesc._PROJ, jdesc._PROJ)
 

@@ -77,6 +77,17 @@ def test_se3_roundtrip_compose_transform(rng):
                                atol=1e-5)
 
 
+def test_transform_point_matches_jax(rng):
+    """One point per pose, batched over poses and over a leading dim."""
+    rv = _rvecs(rng)
+    t = rng.normal(size=(64, 3)).astype(np.float32)
+    Tm = np.asarray(jse3.pose_matrix(jnp.asarray(rv), jnp.asarray(t)))
+    X = rng.normal(size=(3, 64, 3)).astype(np.float32)
+    got = tse3.transform_point(T(Tm), T(X)).numpy()
+    want = np.asarray(jse3.transform_point(jnp.asarray(Tm), jnp.asarray(X)))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 def test_camera_matches_jax(rng):
     jc = default_camera()
     tc = tcam.Camera(*jc)

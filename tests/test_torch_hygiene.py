@@ -44,7 +44,9 @@ SLICE_MODULES = [
     "racing_slam_tpu_torch.slam.state", "racing_slam_tpu_torch.slam.frontend",
     "racing_slam_tpu_torch.slam.pipeline", "racing_slam_tpu_torch.utils.synthetic",
     "racing_slam_tpu_torch.utils.convert", "racing_slam_tpu_torch.utils.metrics",
-    "racing_slam_tpu_torch.utils.video",
+    "racing_slam_tpu_torch.utils.video", "racing_slam_tpu_torch.utils.checkpoint",
+    "racing_slam_tpu_torch.utils.timing", "racing_slam_tpu_torch.utils.viz",
+    "racing_slam_tpu_torch.native_bindings", "racing_slam_tpu_torch.run",
 ]
 
 

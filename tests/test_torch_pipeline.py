@@ -15,9 +15,19 @@ synthetic sequence (320x240, 16 frames).
     the window BA (local_ba_window=4) against the JAX package's, and a run
     with window BA, periodic refinement and the banded matcher within (b)'s
     bound.
-(d) Configuration values of later slices raise NotImplementedError, the
-    values this slice brought are accepted, and Slam without a card raises
-    unless given device="cpu".
+(d) Every configuration value of the JAX package but its XLA/Pallas
+    backend switches builds a `Slam`, and Slam without a card raises unless
+    given device="cpu".
+(e) The essential-matrix and adaptive pose predictions: one step of each
+    from (a)'s state against the JAX package's, with the RANSAC uniforms
+    JAX draws from its key passed to the port, at (a)'s tolerances. Shared
+    uniforms give the same 8-point samples, but each sample's E is float32
+    noise in both packages (as far from a float64 solve on either side),
+    so the raw predictions differ; the guided match and motion BA after
+    them converge to the same pose. An adaptive run tracks (b)'s sequence.
+(f) The obs-descriptor cache equals the full regather, and the compacted
+    cull the full sweep, on the port's twins (tests/test_pipeline.py's
+    checks of the same invariants).
 """
 
 import dataclasses
@@ -158,11 +168,52 @@ def _ate(slam, seq):
     return ate_rmse(slam.poses(), gt), length, kf
 
 
-@pytest.mark.parametrize("prediction", ["constant_position", "constant_velocity"])
+@pytest.mark.parametrize("mode,branch", [
+    (dict(essential_matrix_estimation=True), True),
+    (dict(pose_prediction="adaptive", adaptive_pred_inliers=1 << 30), True),  # starved
+    (dict(pose_prediction="adaptive"), False),  # healthy: constant position
+])
+def test_prediction_step_matches_jax(seq, jax_run, mode, branch):
+    cfg = dataclasses.replace(CFG, **mode)
+    jcfg = JaxSlamConfig(**dataclasses.asdict(cfg))
+    jcam, slam = jax_run
+    st = slam.state
+    assert int(st.last_inliers) >= SlamConfig().adaptive_pred_inliers  # a healthy state
+    img = _u8(seq.frames[int(st.frame_count)])
+    key = jax.random.PRNGKey(5)
+    step = jax.jit(partial(jp.slam_step, cam=jcam, cfg=jcfg, frontend=slam.frontend))
+    jst, jinfo = step(st, jnp.asarray(img), key, None)
+    K = st.last_feat.xy.shape[0]
+    uniforms = torch.from_numpy(np.array(jax.random.uniform(key, (cfg.ransac_hypotheses, K))))
+    tst, tinfo = tp.slam_step(state_from_numpy(jax.tree.map(np.asarray, st), device="cpu"),
+                              torch.from_numpy(img), None, cam=Camera(*seq.cam), cfg=cfg,
+                              frontend=ClassicalFrontend(), uniforms=uniforms,
+                              last_inliers=int(st.last_inliers))
+    assert tinfo.essential_prediction == branch
+    jm, tm = np.asarray(jst.last_matches), tst.last_matches.numpy()
+    assert (jm >= 0).sum() > 50
+    assert (jm == tm).mean() >= 0.97
+    np.testing.assert_allclose(tst.last_rvec.numpy(), np.asarray(jst.last_rvec), atol=1e-4)
+    np.testing.assert_allclose(tst.last_t.numpy(), np.asarray(jst.last_t), atol=1e-3)
+    assert tinfo.is_keyframe == bool(jinfo.is_keyframe)
+    assert abs(tinfo.n_inliers - int(jinfo.n_inliers)) <= 0.02 * int(jinfo.n_inliers)
+
+
+# The adaptive case is starved on every frame (a threshold above any inlier
+# count), so each frame takes the rescaled essential prediction.
+PREDICTIONS = {
+    "constant_position": dict(pose_prediction="constant_position"),
+    "constant_velocity": dict(pose_prediction="constant_velocity"),
+    "adaptive": dict(pose_prediction="adaptive", adaptive_pred_inliers=1 << 30),
+    "essential": dict(essential_matrix_estimation=True),
+}
+
+
+@pytest.mark.parametrize("prediction", list(PREDICTIONS))
 def test_slice_tracks_the_sequence(seq, prediction):
     cfg = SlamConfig(triangulate_points=True, bundle_adjust=True, optimize_pose=True,
                      cull_points=True, max_keyframes=16, map_capacity=2048,
-                     pose_prediction=prediction)
+                     **PREDICTIONS[prediction])
     slam = tp.Slam(seq.cam, ArraySource(seq.frames), cfg, device="cpu")
     assert slam.initialize()
     n = slam.run_batched(batch=8)
@@ -171,6 +222,8 @@ def test_slice_tracks_the_sequence(seq, prediction):
     assert ate < 0.08 * length, f"ATE {ate} vs trajectory length {length}"
     assert slam.reprojection_error() < 2.0
     assert slam.host_syncs["track"] == n == slam.frames_tracked
+    essential = prediction in ("adaptive", "essential")
+    assert slam.essential_predictions == (n if essential else 0)
 
 
 def test_run_batched_matches_per_frame_stepping(seq):
@@ -229,8 +282,14 @@ def test_refine_cadence_is_independent_of_the_batch(seq):
     dict(pose_prediction="adaptive"), dict(essential_matrix_estimation=True),
 ])
 def test_out_of_slice_config_raises(seq, override):
-    with pytest.raises(NotImplementedError, match="slice"):
-        tp.Slam(seq.cam, [], SlamConfig(**override))
+    """The two values the port once refused (adaptive and essential-matrix
+    prediction) now build a `Slam`; a prediction the JAX package does not
+    know still raises."""
+    slam = tp.Slam(seq.cam, [], SlamConfig(**override), device="cpu")
+    assert slam.cfg == SlamConfig(**override) and slam.essential_predictions == 0
+    with pytest.raises(ValueError, match="pose_prediction"):
+        tp.Slam(seq.cam, [], SlamConfig(**{**override, "pose_prediction": "essential"}),
+                device="cpu")
 
 
 @pytest.mark.parametrize("override", [
@@ -260,3 +319,39 @@ def test_jax_backend_choices_are_refused(seq, override):
     package's XLA/Pallas switches have no meaning here and are refused."""
     with pytest.raises(ValueError, match="only 'auto'"):
         tp.Slam(seq.cam, [], SlamConfig(**override))
+
+
+def test_obs_desc_cache_matches_full_regather(seq):
+    """The per-commit obs-descriptor refresh equals the full [P, O, D]
+    regather on every valid observation (invalid entries may hold stale
+    values: every consumer masks them); 6 keyframe slots, so evictions and
+    slot reuse happen."""
+    cfg = SlamConfig(triangulate_points=True, bundle_adjust=True, optimize_pose=True,
+                     cull_points=True, max_keyframes=6, map_capacity=1024)
+    slam = tp.Slam(seq.cam, ArraySource(seq.frames), cfg, device="cpu")
+    assert slam.initialize()
+    slam.run()
+    st = slam.state
+    full, dvalid = st.map.observation_descriptors(st.kfs)
+    assert int(st.arch_count) > 0 and int(dvalid.sum()) > 100
+    torch.testing.assert_close(st.obs_desc[dvalid], full.to(torch.bfloat16)[dvalid],
+                               atol=0, rtol=0)
+
+
+def test_compact_cull_matches_full_sweep(seq):
+    """The commit cull over the points a commit touched reproduces the full
+    [P, O] sweep (cull_budget=0 forces it): two runs, with evictions and the
+    window BA, end with the same map and keyframes."""
+    base = dict(triangulate_points=True, bundle_adjust=True, optimize_pose=True,
+                cull_points=True, max_keyframes=6, map_capacity=1024, local_ba_window=4)
+    runs = []
+    for extra in ({}, dict(cull_budget=0)):
+        s = tp.Slam(seq.cam, ArraySource(seq.frames), SlamConfig(**base, **extra), device="cpu")
+        assert s.initialize()
+        s.run()
+        runs.append(s.state)
+    a, b = runs
+    assert torch.equal(a.map.valid, b.map.valid)
+    assert torch.equal(a.kfs.frame_index, b.kfs.frame_index)
+    torch.testing.assert_close(a.kfs.rvec, b.kfs.rvec, atol=1e-5, rtol=0)
+    torch.testing.assert_close(a.map.pos, b.map.pos, atol=1e-4, rtol=0)

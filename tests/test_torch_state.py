@@ -133,6 +133,30 @@ def test_create_points(rng):
     assert int(tcr.sum()) > 0
 
 
+def test_create_points_with_more_candidates_than_slots(rng):
+    """C > P (a frame's K keypoints against a smaller map, as the CLI's
+    --map-capacity 1024 at K = 2400): the port takes JAX's clamped slots
+    and creates the same points."""
+    jst, tst = _both(rng)
+    C = 3 * P // 2
+    pos = rng.normal(size=(C, 3)).astype(np.float32)
+    cv = rng.uniform(size=C) < 0.7
+    kp = rng.integers(0, K, C)
+    col = rng.uniform(size=C).astype(np.float32)
+    jm, jk, jsl, jcr = js.create_points(jst.map, jnp.asarray(pos), jnp.asarray(cv), jnp.int32(1),
+                                        jnp.int32(4), jnp.asarray(kp, jnp.int32),
+                                        jnp.asarray(kp[::-1].copy(), jnp.int32), jnp.asarray(col),
+                                        jst.kfs)
+    tm, tk, tsl, tcr = ts.create_points(tst.map, torch.from_numpy(pos), torch.from_numpy(cv), 1,
+                                        4, torch.from_numpy(kp), torch.from_numpy(kp[::-1].copy()),
+                                        torch.from_numpy(col), tst.kfs)
+    _eq_tree(tm, jm)
+    _eq_tree(tk, jk)
+    _eq(tsl, jsl)
+    _eq(tcr, jcr)
+    assert 0 < int(tcr.sum()) == int((~np.asarray(jst.map.valid)).sum())
+
+
 @pytest.mark.parametrize("policy", ["replace_oldest", "drop_newest"])
 def test_add_associations_and_remove_points(rng, policy):
     jst, tst = _both(rng)
