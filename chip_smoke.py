@@ -7,14 +7,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      no CUDA device is a failure, there is no CPU fallback;
   2. build the six CUDA kernels from racing_slam_tpu_torch/csrc (one nvcc
-     process per source, all started together);
+     process per source, all started together); worker processes render
+     every bench world the paths need while phase 3 runs;
   3. each kernel against its plain-PyTorch twin on the card, at the shapes
      of the main paths (640x480 frame; P=4096 map points x O=8
      observations x K=2400 keypoints at D=128 and D=256; the banded search
      at P=16384 (8192 sorted rows, 2560 padded keypoints), with a case
      whose band does not fit; commit BA over 2432 points and 32 cameras,
      and at 7296 and 16384 points, each run twice for identical bits;
-     attention at [2400, 4, 32]), with device times (cuda_ms: CUDA
+     attention at [2400, 4, 32]; K1 over the multi path's [8, 480, 640]
+     frames and K2 (D=128 and D=256) and K3 batched over S=8 problems of
+     those shapes, each row bit-equal to a launch of the row alone), with
+     device times (cuda_ms: CUDA
      events around 25 back-to-back calls queued behind a sleep kernel),
      the least time
      the card could take for the same work (bound_ms) and, for attention,
@@ -41,6 +45,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      `adaptive` takes it on no frame, a run of its first 96 tracked frames
      with a threshold above any inlier count must take it on every frame,
      with one host read a frame and finite poses;
+  4b. `multi`: MultiSlam over S=8 bench worlds of 98 frames (seeds 3, 5,
+     7, 8, 9, 10, 11, 12), classical configuration: one K1, two K2 and two
+     K3 launches and one host read a lockstep frame, every sequence held
+     to ATE <= 10 % and coverage >= 0.85; the same worlds stepped frame by
+     frame through MultiSlam and one by one through Slam, under constant
+     velocity and constant position: each row's first lockstep frame whose
+     state differs from its Slam's, and the last poses' differences; total
+     and per-sequence fps at S=1 and S=8 alternating 1, 8, 8, 1. `dist`: a
+     world of one over NCCL (FileStore): distributed_full_ba at the
+     refinement shape bit-equal to full_ba, and MultiSlam on the mesh with
+     a landmark-sharded refinement every batch, its costs printed;
   5. the command line, `python -m racing_slam_tpu_torch --synthetic
      --synthetic-frames 96 --out build/cli_smoke --checkpoint-every 4
      --quiet`, in a subprocess on the card: exit 0, its artifacts, the ATE
@@ -53,7 +68,7 @@ The line before the last is the kernel table as JSON; the last line is
 Options (the defaults are the check above): --seeds 3,8 runs every path on
 each listed seed's world (the kernel table reads the first seed's runs);
 --profile 96 replays each path of the first seed and profiles its first 96
-tracked frames.
+tracked frames (`multi`: its first 96 lockstep frames of all 8 sequences).
 """
 
 from __future__ import annotations
@@ -136,6 +151,33 @@ def cuda_ms(fn, n: int = 25, rounds: int = 5, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _frontend_mask(H: int, W: int) -> np.ndarray:
+    """The bench's okayama-shape mask: bottom fifth and top twelfth blocked."""
+    m = np.ones((H, W), np.float32)
+    m[-H // 5:, :] = 0
+    m[: H // 12, :] = 0
+    return m
+
+
+def _k1_compare(got, want, m: np.ndarray | None, what: str) -> float:
+    """check_frontend's rules for K1's maps against the twin's, for one
+    frame ([H, W]); returns the largest error."""
+    r, p, b = [x.cpu().numpy() for x in got]
+    r0, p0, b0 = [x.cpu().numpy() for x in want]
+    np.testing.assert_allclose(r, r0, atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(b, b0, atol=1e-5)
+    flips = np.mean((p > 0) != (p0 > 0))
+    both = (p > 0) & (p0 > 0)
+    assert flips <= 1e-4, f"{what}: peak status differs at {flips:.2e} of pixels"
+    np.testing.assert_allclose(p[both], p0[both], atol=2e-5, rtol=1e-4)
+    if m is not None:
+        assert r[m == 0].max() == 0.0, f"{what}: response inside the mask"
+    log(f"{what}: |resp| err {np.abs(r - r0).max():.3e}, |blur2| err {np.abs(b - b0).max():.3e}, "
+        f"peak flips {flips:.2e}")
+    return max(float(np.abs(r - r0).max()), float(np.abs(b - b0).max()),
+               float(np.abs(p[both] - p0[both]).max()))
+
+
 def check_frontend(frame: np.ndarray, dev) -> dict:
     """K1 on a rendered 640x480 bench frame, with and without the bench's
     okayama-shape mask (bottom fifth + top twelfth blocked).
@@ -151,29 +193,14 @@ def check_frontend(frame: np.ndarray, dev) -> dict:
 
     img = torch.from_numpy(frame.astype(np.float32) / 255.0).to(dev)
     H, W = img.shape
-    m = np.ones((H, W), np.float32)
-    m[-H // 5:, :] = 0
-    m[: H // 12, :] = 0
+    m = _frontend_mask(H, W)
     mask = torch.from_numpy(m).to(dev)
     err = 0.0
     for msk in (None, mask):
         got = k.corner_frontend_fused(img, msk)
         want = k.corner_frontend_fused_reference(img, msk)
-        torch.cuda.synchronize()
-        r, p, b = [x.cpu().numpy() for x in got]
-        r0, p0, b0 = [x.cpu().numpy() for x in want]
-        np.testing.assert_allclose(r, r0, atol=2e-5, rtol=1e-4)
-        np.testing.assert_allclose(b, b0, atol=1e-5)
-        flips = np.mean((p > 0) != (p0 > 0))
-        both = (p > 0) & (p0 > 0)
-        assert flips <= 1e-4, f"K1 peak status differs at {flips:.2e} of pixels"
-        np.testing.assert_allclose(p[both], p0[both], atol=2e-5, rtol=1e-4)
-        if msk is not None:
-            assert r[m == 0].max() == 0.0, "K1 response inside the mask"
-        err = max(err, float(np.abs(r - r0).max()), float(np.abs(b - b0).max()),
-                  float(np.abs(p[both] - p0[both]).max()))
-        log(f"K1 frontend mask={msk is not None}: |resp| err {np.abs(r - r0).max():.3e}, "
-            f"|blur2| err {np.abs(b - b0).max():.3e}, peak flips {flips:.2e}")
+        err = max(err, _k1_compare(got, want, None if msk is None else m,
+                                   f"K1 frontend mask={msk is not None}"))
     ms = cuda_ms(lambda: k.corner_frontend_fused(img, mask))
     plain = cuda_ms(lambda: k.corner_frontend_fused_reference(img, mask), rounds=1)
     # Per pixel: blur sigma 1.2 (2 x 9 taps) 36, Sobel 24, tensor products
@@ -453,16 +480,11 @@ def _rotvec_matrix(w):
     return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
 
 
-def check_motion_ba(dev) -> dict:
-    """K3 at K=2400 rows (70 % valid, 10 % gross outliers), 10 iterations,
-    pixel Huber scale. Tolerances (tests/test_ba_kernels.py): rvec atol
-    1e-5, t atol 1e-4, cost within 1 % of the twin's either way."""
+def _k3_data(rng, dev, K: int = 2400) -> tuple:
+    """check_motion_ba's problem: K rows (70 % valid, 10 % gross
+    outliers, 0.5 px noise), the pose perturbed; (args, kwargs) on `dev`."""
     import torch
 
-    from racing_slam_tpu_torch.ops.kernels import motion_ba as k
-
-    rng = np.random.default_rng(11)
-    K = 2400
     fx, cx, cy = 480.0, 320.0, 240.0
     X = np.stack([rng.uniform(-6, 6, K), rng.uniform(-4, 4, K), rng.uniform(4, 14, K)], -1)
     w_gt = np.array([0.02, -0.05, 0.01])
@@ -474,8 +496,21 @@ def check_motion_ba(dev) -> dict:
     valid = rng.uniform(size=K) < 0.7
     pose0 = np.concatenate([w_gt + [0.01, -0.01, 0.005], t_gt + [0.05, -0.04, 0.06]])
     t = lambda a, d=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(d)  # noqa
-    args = (t(pose0), t(uv), t(X), t(valid, torch.bool))
-    kw = dict(fx=fx, cx=cx, cy=cy, max_iters=10, huber_delta=float(np.sqrt(5.991)) / fx)
+    return ((t(pose0), t(uv), t(X), t(valid, torch.bool)),
+            dict(fx=fx, cx=cx, cy=cy, max_iters=10, huber_delta=float(np.sqrt(5.991)) / fx))
+
+
+def check_motion_ba(dev) -> dict:
+    """K3 at K=2400 rows (70 % valid, 10 % gross outliers), 10 iterations,
+    pixel Huber scale. Tolerances (tests/test_ba_kernels.py): rvec atol
+    1e-5, t atol 1e-4, cost within 1 % of the twin's either way."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import motion_ba as k
+
+    K = 2400
+    args, kw = _k3_data(np.random.default_rng(11), dev, K)
+    valid = args[3].cpu().numpy()
     out = k.motion_ba_lm(*args, **kw).cpu().numpy()
     ref = k.motion_ba_lm_reference(*args, **kw).cpu().numpy()
     np.testing.assert_allclose(out[:3], ref[:3], atol=1e-5)
@@ -502,6 +537,144 @@ def check_motion_ba(dev) -> dict:
                 **bound(nbytes(*args) + 8 * 4, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/motion_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/motion_ba_kernel.py:309")
+
+
+MULTI_S = 8  # sequences of the multi path, and the batched checks' S
+
+
+def check_match_batched(dev, D: int = 128) -> dict:
+    """K2 batched over S=8 problems in one launch, each check_match's shape
+    (P=4096, O=8, K=2400, radius 28 px) with its own data (seeds 7..14).
+    Each row must equal a launch of that row alone to the bit, and the
+    batched twin (row by row) by check_match's rules. Times: the batched
+    launch, the S single launches back to back, the batched twin. Bound:
+    check_match's rule summed over the rows (S times the single bound for
+    equal rows)."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import match as k
+
+    P, r = 4096, 28.0
+    data = [_k2_data(np.random.default_rng(7 + i), P, D, gate_rate=0.6) for i in range(MULTI_S)]
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack([d[j] for d in data]))).to(dev)
+            for j in range(7)]
+    args[2] = args[2].to(torch.bfloat16)
+    rows = [[a[i] for a in args] for i in range(MULTI_S)]
+    before = k.launches
+    bk, bd = k.guided_match_stage1(*args, radius_px=r)
+    assert k.launches == before + 1, "K2 batched: not one launch"
+    rk, rd = k.guided_match_stage1_reference(*args, radius_px=r)
+    for i, row in enumerate(rows):
+        sk, sd = k.guided_match_stage1(*row, radius_px=r)
+        assert torch.equal(bk[i], sk) and torch.equal(bd[i], sd), f"K2 batched row {i} != single"
+    torch.cuda.synchronize()
+    bk, bd, rk, rd = [x.cpu().numpy() for x in (bk, bd, rk, rd)]
+    same = bk == rk
+    agree = float(same.mean(axis=1).min())
+    assert agree >= 0.999, f"K2 batched D={D} keypoint agreement {agree}"
+    tie = np.isin(rk, np.arange(0, 200, 2)) & (rd < 1e9)
+    assert (bk[tie] == rk[tie]).all(), "K2 batched: planted tie not to the lower index"
+    err = float(np.abs(bd[same] - rd[same]).max())
+    assert err <= 1e-5, f"K2 batched D={D} distance error {err}"
+    ms = cuda_ms(lambda: k.guided_match_stage1(*args, radius_px=r))
+    singles = cuda_ms(lambda: [k.guided_match_stage1(*row, radius_px=r) for row in rows])
+    plain = cuda_ms(lambda: k.guided_match_stage1_reference(*args, radius_px=r), n=3, rounds=1)
+    n_bytes = tests = dots = 0
+    for uv_p, gate, _, obs_valid, kp_uv, _, kp_ok in data:
+        d2 = ((uv_p[:, None, :] - kp_uv[None, :, :]) ** 2).sum(-1)
+        passing = (d2 <= r ** 2) & gate[:, None] & kp_ok[None, :]
+        b, t = _k2_needed(uv_p, gate, obs_valid, kp_uv, kp_ok, passing, D, r)
+        n_bytes, tests = n_bytes + b, tests + t
+        dots += int((passing.sum(1) * obs_valid.sum(1)).sum())
+    log(f"K2 batched S={MULTI_S} D={D}: rows bit-equal to single launches; keypoint agreement "
+        f"with the twin >= {agree:.5f}, |d2| err {err:.3e}; one launch {ms:.4f} ms, "
+        f"{MULTI_S} single launches {singles:.4f} ms")
+    return dict(name=f"guided_match_stage1[S={MULTI_S}]", module=k, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=None, singles_ms=singles,
+                **bound(n_bytes, {"f32": 5 * tests, "bf16": 2 * D * dots}),
+                source="racing_slam_tpu_torch/csrc/match_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/match_kernel.py:115")
+
+
+def check_motion_ba_batched(dev) -> dict:
+    """K3 batched over S=8 solves in one launch, each check_motion_ba's
+    problem (K=2400) with its own data (seeds 11..18): each row equal to a
+    launch of that row alone to the bit, and within the twin's rules (rvec
+    1e-5, t 1e-4, cost 1 %). Times as check_match_batched's; bound the sum
+    of the rows' check_motion_ba bounds (bytes and operations at each
+    row's own iteration count)."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import motion_ba as k
+
+    probs = [_k3_data(np.random.default_rng(11 + i), dev) for i in range(MULTI_S)]
+    kw = probs[0][1]
+    args = [torch.stack([p[0][j] for p in probs]) for j in range(4)]
+    before = k.launches
+    out = k.motion_ba_lm(*args, **kw)
+    assert k.launches == before + 1, "K3 batched: not one launch"
+    for i, (row, _) in enumerate(probs):
+        assert torch.equal(out[i], k.motion_ba_lm(*row, **kw)), f"K3 batched row {i} != single"
+    ref = k.motion_ba_lm_reference(*args, **kw).cpu().numpy()
+    out = out.cpu().numpy()
+    np.testing.assert_allclose(out[:, :3], ref[:, :3], atol=1e-5)
+    np.testing.assert_allclose(out[:, 3:6], ref[:, 3:6], atol=1e-4)
+    assert (np.abs(out[:, 6] - ref[:, 6]) <= 0.01 * ref[:, 6] + 1e-10).all(), (out[:, 6], ref[:, 6])
+    err = float(np.abs(out[:, :6] - ref[:, :6]).max())
+    ms = cuda_ms(lambda: k.motion_ba_lm(*args, **kw))
+    singles = cuda_ms(lambda: [k.motion_ba_lm(*row, **kw) for row, _ in probs])
+    plain = cuda_ms(lambda: k.motion_ba_lm_reference(*args, **kw), n=3, rounds=1)
+    n_valid = args[3].sum(dim=1).cpu().numpy()
+    ops = int(sum(210 * int(v) * int(it) for v, it in zip(n_valid, out[:, 7])))
+    log(f"K3 batched S={MULTI_S}: rows bit-equal to single launches, |pose| err vs twin "
+        f"{err:.3e}, iterations {out[:, 7].astype(int).tolist()}; one launch {ms:.4f} ms, "
+        f"{MULTI_S} single launches {singles:.4f} ms")
+    return dict(name=f"motion_ba_lm[S={MULTI_S}]", module=k, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=None, singles_ms=singles,
+                **bound(nbytes(*args) + MULTI_S * 8 * 4, {"f32": ops}),
+                source="racing_slam_tpu_torch/csrc/motion_ba_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/motion_ba_kernel.py:309")
+
+
+def check_frontend_batched(frames: list, dev) -> dict:
+    """K1 over S=8 frames in one launch, the multi path's shape: frame 1 of
+    each of its eight worlds as [8, 480, 640], with and without
+    check_frontend's mask. Each frame's maps must equal a launch on that
+    frame alone to the bit, and the twin's by check_frontend's rules.
+    Times: the batched launch, the S single launches back to back, the
+    twin over the stack. Bound: check_frontend's rule over S frames (the
+    mask read once)."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import frontend as k
+
+    imgs = torch.from_numpy(np.stack(frames).astype(np.float32) / 255.0).to(dev)
+    S, H, W = imgs.shape
+    m = _frontend_mask(H, W)
+    mask = torch.from_numpy(m).to(dev)
+    err = 0.0
+    for msk in (None, mask):
+        before = k.launches
+        got = k.corner_frontend_fused(imgs, msk)
+        assert k.launches == before + 1, "K1 batched: not one launch"
+        want = k.corner_frontend_fused_reference(imgs, msk)
+        for i in range(S):
+            single = k.corner_frontend_fused(imgs[i], msk)
+            assert all(torch.equal(g[i], x) for g, x in zip(got, single)), \
+                f"K1 batched frame {i} != single (mask={msk is not None})"
+            err = max(err, _k1_compare([g[i] for g in got], [w[i] for w in want],
+                                       None if msk is None else m,
+                                       f"K1 batched S={S} frame {i} mask={msk is not None}"))
+    ms = cuda_ms(lambda: k.corner_frontend_fused(imgs, None))
+    singles = cuda_ms(lambda: [k.corner_frontend_fused(imgs[i], None) for i in range(S)])
+    plain = cuda_ms(lambda: k.corner_frontend_fused_reference(imgs, None), n=3, rounds=1)
+    log(f"K1 batched S={S}: frames bit-equal to single launches; one launch {ms:.4f} ms, "
+        f"{S} single launches {singles:.4f} ms")
+    return dict(name=f"corner_frontend_fused[S={S}]", module=k, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=None, singles_ms=singles,
+                **bound(4 * nbytes(imgs), {"f32": 173 * S * H * W}),
+                source="racing_slam_tpu_torch/csrc/frontend_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/frontend_kernel.py:167")
 
 
 def _k4_data(dev, P: int = 2432, seed: int = 13):
@@ -735,6 +908,29 @@ def check_attention(dev) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/attention_kernel.py:88")
 
 
+def schur_problem(rng, dev, P: int, F: int = 32, O: int = 8):
+    """A refinement-shaped BAProblem: P points x O observations of F
+    cameras along the bench dolly (the two oldest frozen), 0.5 px noise,
+    80 % of observations kept."""
+    import torch
+
+    from racing_slam_tpu_torch.ops import ba
+
+    rv = np.zeros((F, 3), np.float32)
+    rv[:, 1] = 0.002 * np.arange(F)
+    X = np.stack([rng.uniform(-5, 5, P), rng.uniform(-3, 3, P), rng.uniform(8, 16, P)], -1)
+    obs_cam = (F - 1 - (np.arange(O)[None] + rng.integers(0, 4, (P, 1))) % F)
+    Xc = X[:, None] + np.outer(np.arange(F), [-0.05, -0.005, -0.1])[obs_cam]
+    uv = 480.0 * Xc[..., :2] / Xc[..., 2:] + [320.0, 240.0] + rng.normal(0, 0.5, (P, O, 2))
+    t = lambda a, d=torch.float32: torch.from_numpy(np.asarray(a)).to(dev, d)  # noqa: E731
+    ones = torch.ones(P, dtype=torch.bool, device=dev)
+    return ba.BAProblem(t(rv), t(-np.outer(np.arange(F), [0.05, 0.005, 0.1])), t(X),
+                        t(obs_cam, torch.int64), t(uv),
+                        t(rng.uniform(size=(P, O)) < 0.8, torch.bool),
+                        torch.arange(F, device=dev) >= 2,
+                        torch.ones(F, dtype=torch.bool, device=dev), ones, ones)
+
+
 def time_schur_solvers(dev) -> dict:
     """The headline and scale paths' plain-PyTorch solvers (no Pallas
     kernel in the JAX package, so no kernel here): window_ba at the commit
@@ -750,22 +946,9 @@ def time_schur_solvers(dev) -> dict:
 
     rng = np.random.default_rng(21)
     cam = Camera(480.0, 480.0, 320.0, 240.0, 640, 480)
-    F, O = 32, 8
 
     def problem(P):
-        rv = np.zeros((F, 3), np.float32)
-        rv[:, 1] = 0.002 * np.arange(F)
-        X = np.stack([rng.uniform(-5, 5, P), rng.uniform(-3, 3, P), rng.uniform(8, 16, P)], -1)
-        obs_cam = (F - 1 - (np.arange(O)[None] + rng.integers(0, 4, (P, 1))) % F)
-        Xc = X[:, None] + np.outer(np.arange(F), [-0.05, -0.005, -0.1])[obs_cam]
-        uv = 480.0 * Xc[..., :2] / Xc[..., 2:] + [320.0, 240.0] + rng.normal(0, 0.5, (P, O, 2))
-        t = lambda a, d=torch.float32: torch.from_numpy(np.asarray(a)).to(dev, d)  # noqa: E731
-        ones = torch.ones(P, dtype=torch.bool, device=dev)
-        return ba.BAProblem(t(rv), t(-np.outer(np.arange(F), [0.05, 0.005, 0.1])), t(X),
-                            t(obs_cam, torch.int64), t(uv),
-                            t(rng.uniform(size=(P, O)) < 0.8, torch.bool),
-                            torch.arange(F, device=dev) >= 2,
-                            torch.ones(F, dtype=torch.bool, device=dev), ones, ones)
+        return schur_problem(rng, dev, P)
 
     calls = {"window_ba": (lambda p=problem(1024), s=torch.tensor([31, 30, 29, 28], device=dev):
                            ba.window_ba(cam, p, s, max_iters=10, huber_delta=0.005)),
@@ -847,23 +1030,24 @@ def check_superpoint(frame: np.ndarray, dev) -> dict:
 def render_bench_world(seed: int, cam, n_frames: int) -> tuple[list, np.ndarray]:
     """The bench world (bench.py render): 260 sprites, dolly step
     [0.05, 0.005, 0.10], yaw 0.002 rad/frame; frames as uint8."""
-    from racing_slam_tpu_torch.utils.synthetic import make_sequence
+    from racing_slam_tpu_torch.tools.scaling import render_world
 
-    seq = make_sequence(np.random.default_rng(seed), n_frames=n_frames, cam=cam,
-                        n_sprites=260, step_t=np.array([0.05, 0.005, 0.10], np.float32),
-                        yaw_per_frame=0.002)
-    frames = [np.clip(f * 255.0, 0, 255).astype(np.uint8) for f in seq.frames]
-    return frames, seq.poses
+    return render_world((seed, n_frames, tuple(cam)))
 
 
 def full_trajectory_ate(slam, gt_poses: np.ndarray, n_frames: int) -> dict:
     """Sim(3) ATE over every trajectory segment (archive + live keyframes),
     length-weighted; coverage = fraction of frames inside some segment
     (bench.py full_trajectory_ate)."""
-    from racing_slam_tpu_torch.utils.metrics import ate_rmse, camera_centers
-
     segs = list(slam.segments) + [dict(poses=slam.poses(include_archived=True),
                                        frame_indices=slam.keyframe_indices(include_archived=True))]
+    return segments_ate(segs, gt_poses, n_frames)
+
+
+def segments_ate(segs: list, gt_poses: np.ndarray, n_frames: int) -> dict:
+    """full_trajectory_ate over a list of segments (poses, frame_indices)."""
+    from racing_slam_tpu_torch.utils.metrics import ate_rmse, camera_centers
+
     tot_ate, tot_len, covered, n_kf = 0.0, 0.0, 0, 0
     for s in segs:
         idx = np.asarray(s["frame_indices"])
@@ -913,21 +1097,28 @@ OUR_KERNELS = {"K1": "frontend_kernel", "K2": "guided_match_kernel", "K3": "moti
 
 def profile_path(slam, frames: list, n: int) -> dict:
     """Replay the path (same seed, same draws) and profile its first `n`
-    tracked frames after the bootstrap with torch.profiler: wall time, the
-    device time of every kernel and copy (each device event counted once),
-    the busy share, the kernels taking the most device time, and the
-    device time and launches of each of the port's own kernels."""
+    tracked frames after the bootstrap (profile_run)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from racing_slam_tpu_torch.utils.video import ArraySource
 
     slam.reset_run(ArraySource(frames))
     assert slam.initialize()
     torch.cuda.synchronize()
+    return dict(frames=n, **profile_run(lambda: slam.run_batched(max_frames=n, batch=BATCH)))
+
+
+def profile_run(fn) -> dict:
+    """fn() under torch.profiler: wall time, the device time of every
+    kernel and copy (each device event counted once), the busy share, the
+    kernels taking the most device time, and the device time and launches
+    of each of the port's own kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        slam.run_batched(max_frames=n, batch=BATCH)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
     by_name: Counter = Counter()
@@ -943,7 +1134,7 @@ def profile_path(slam, frames: list, n: int) -> dict:
                     ours[kern + " ms"] += ms
                     ours[kern + " launches"] += 1
     busy_ms = sum(by_name.values())
-    return dict(frames=n, wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=busy_ms / wall_ms,
                 device_events=n_events,
                 top_ms={k: round(v, 3) for k, v in by_name.most_common(10)},
                 kernels={k: round(v, 3) for k, v in sorted(ours.items())})
@@ -1074,6 +1265,212 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
     return res
 
 
+# The multi path: S=8 sequences of bench.py's world (640x480), rendered at
+# this length (a world depends on its length), about 96 tracked frames each.
+MULTI_SEEDS = (3, 5, 7, 8, 9, 10, 11, 12)
+MULTI_FRAMES = 98
+DIST_FRAMES = 32  # the dist phase's MultiSlam run, with a refinement every batch of 16
+
+
+def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) -> dict:
+    """The multi-sequence path: MultiSlam over the S=8 worlds, classical
+    configuration (bench.py's, P=4096, K=2400, W=1), bootstrap per
+    sequence, then run_batched to the end of the worlds. Asserted: one K1,
+    two K2 and two K3 launches and one host read a lockstep frame; every
+    sequence's ATE <= 10 % and coverage >= 0.85. Printed: the same worlds
+    through MultiSlam and one by one through Slam (one_by_one), and, from
+    this call, total and per-sequence fps at S=1 and S=8 alternating 1, 8,
+    8, 1 (tools/scaling.alternate). The counts of the bootstrap and of the
+    lockstep frames are kept apart (init_launches, run_launches)."""
+    import torch
+
+    from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
+    from racing_slam_tpu_torch.tools.scaling import alternate
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    cfg = path_config("classical")
+    frames = [w[0] for w in worlds]
+    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, device=dev)
+    for kern in kernels:
+        kern["module"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    assert ms.initialize(), "multi: bootstrap failed"
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    init_launches = {kern["name"]: kern["module"].launches for kern in kernels}
+    for kern in kernels:
+        kern["module"].launches = 0
+    t1 = time.time()
+    n = ms.run_batched(batch=BATCH)
+    torch.cuda.synchronize()
+    t_track = time.time() - t1
+    run_launches = {kern["name"]: kern["module"].launches for kern in kernels}
+    launches = {k: init_launches[k] + run_launches[k] for k in run_launches}
+    per_frame = {k: run_launches[k] / max(n, 1) for k in ("corner_frontend_fused",
+                                                          "guided_match_stage1", "motion_ba_lm")}
+    seqs = []
+    for i, (f, gt) in enumerate(worlds):
+        acc = segments_ate(ms.trajectory(i), gt, len(f))
+        seqs.append(dict(seed=MULTI_SEEDS[i], ate_pct=100 * acc["ate"] / acc["length"],
+                         coverage=acc["coverage"], keyframes=acc["n_kf"]))
+    res = dict(sequences=len(frames), lockstep_frames=n, init_s=t_init, track_s=t_track,
+               total_fps=len(frames) * n / t_track, per_sequence_fps=n / t_track,
+               host_syncs=ms.host_syncs, launches=launches, init_launches=init_launches,
+               run_launches=run_launches,
+               launches_per_lockstep_frame=per_frame,
+               reinits=len(ms.segments), finished=int(ms.finished.sum()), sequences_acc=seqs)
+    log("multi: " + json.dumps(res))
+    assert per_frame == {"corner_frontend_fused": 1.0, "guided_match_stage1": 2.0,
+                         "motion_ba_lm": 2.0}, per_frame
+    assert ms.host_syncs == n, (ms.host_syncs, n)
+    for sq in seqs:
+        assert sq["ate_pct"] <= 10.0, f"multi seed {sq['seed']}: ATE {sq['ate_pct']:.2f} % > 10 %"
+        assert sq["coverage"] >= 0.85, f"multi seed {sq['seed']}: coverage {sq['coverage']:.3f}"
+
+    # The same worlds one by one through Slam, under the path's prediction
+    # and under constant position.
+    rows = ms.states_per_sequence()
+    res["one_by_one"] = {p: one_by_one(dev, cam, worlds, p, rows if p == cfg.pose_prediction
+                                       else None)
+                         for p in ("constant_velocity", "constant_position")}
+    fps = alternate(cam, frames, cfg, dev, len(frames), BATCH, MULTI_FRAMES)
+    log("multi fps, S=1 / S=8 alternating: " + json.dumps(fps))
+    res["fps"] = fps
+    if profile_frames:
+        prof_ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, device=dev)
+        assert prof_ms.initialize()
+        torch.cuda.synchronize()
+        prof = dict(frames=profile_frames, sequences=len(frames), **profile_run(
+            lambda: prof_ms.run_batched(max_frames=profile_frames, batch=BATCH)))
+        log("multi profile: " + json.dumps(prof))
+    return res
+
+
+def one_by_one(dev, cam, worlds: list, prediction: str, batched_rows: list | None) -> dict:
+    """MultiSlam over the worlds against each world through its own Slam
+    (row i's seed is i, as MultiSlam seeds it), with the classical
+    configuration under `prediction`, both stepped a frame at a time. Per
+    row: the first lockstep frame after which any leaf of its state
+    differs from its Slam's (-1: the bootstrap; None: never), with the
+    leaves that differ and the pose difference then. At the end: the
+    largest last-pose differences, the rows with the same keyframes, and
+    each Slam's ATE; and how many of `batched_rows`, the multi path's final
+    states (run in batches of BATCH), equal this frame-by-frame run's (a
+    run's reproducibility on the card)."""
+    import torch
+
+    from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
+    from racing_slam_tpu_torch.slam.pipeline import Slam
+    from racing_slam_tpu_torch.slam.state import state_row
+    from racing_slam_tpu_torch.utils.checkpoint import _named_leaves
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    def differing(a, b) -> list:
+        la, lb = _named_leaves(a), _named_leaves(b)
+        return [k for k in la if not torch.equal(la[k], lb[k])]
+
+    t0 = time.time()
+    cfg = path_config("classical", pose_prediction=prediction)
+    frames = [w[0] for w in worlds]
+    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, device=dev)
+    assert ms.initialize(), "one by one: MultiSlam bootstrap failed"
+    slams = [Slam(cam, ArraySource(f), cfg, seed=i, device=dev) for i, f in enumerate(frames)]
+    assert all([sl.initialize() for sl in slams]), "one by one: Slam bootstrap failed"
+    first: list = [None] * len(frames)
+    j = -1
+    while True:
+        for i, sl in enumerate(slams):
+            row = state_row(ms.states, i)
+            if first[i] is None and (d := differing(row, sl.state)):
+                first[i] = dict(frame=j, leaves=d,
+                                rvec_diff=float((row.last_rvec - sl.state.last_rvec).abs().max()),
+                                t_diff=float((row.last_t - sl.state.last_t).abs().max()))
+        if ms.run_batched(max_frames=1, batch=1) == 0:
+            break
+        for sl in slams:
+            sl.run_batched(max_frames=1, batch=1)
+        j += 1
+    d_r = d_t = 0.0
+    same_kf = 0
+    ate = []
+    for i, sl in enumerate(slams):
+        row = state_row(ms.states, i)
+        d_r = max(d_r, float((row.last_rvec - sl.state.last_rvec).abs().max()))
+        d_t = max(d_t, float((row.last_t - sl.state.last_t).abs().max()))
+        same_kf += int(row.num_kf) == int(sl.state.num_kf) and \
+            bool(torch.equal(row.kfs.frame_index, sl.state.kfs.frame_index))
+        acc = full_trajectory_ate(sl, worlds[i][1], len(frames[i]))
+        ate.append(100 * acc["ate"] / acc["length"])
+    res = dict(prediction=prediction, lockstep_frames=j + 1, first_departure=first,
+               rows_bit_equal_to_the_end=sum(f is None for f in first),
+               max_abs_last_rvec_diff=d_r, max_abs_last_t_diff=d_t,
+               sequences_with_the_same_keyframes=same_kf, slam_ate_pct=ate,
+               reinits=len(ms.segments), wall_s=time.time() - t0)
+    if batched_rows is not None:
+        res["rows_equal_to_the_batched_run"] = sum(
+            not differing(state_row(ms.states, i), r) for i, r in enumerate(batched_rows))
+    log(f"multi vs one by one through Slam ({prediction}): " + json.dumps(res))
+    return res
+
+
+def run_dist(dev, cam, worlds: list) -> dict:
+    """The distributed layer as a world of one over NCCL (a FileStore in a
+    temporary directory): distributed_full_ba at the refinement shape
+    (2048 points, F=32, 10 iterations) must equal full_ba to the bit; then
+    MultiSlam on the mesh over the S=8 worlds' first DIST_FRAMES frames
+    with a landmark-sharded refinement every batch of 16, its costs printed
+    (finite)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from racing_slam_tpu_torch.ops import ba
+    from racing_slam_tpu_torch.parallel.dist_ba import distributed_full_ba
+    from racing_slam_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
+    from racing_slam_tpu_torch.utils.video import ArraySource
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        world = initialize_distributed(num_processes=1, process_id=0,
+                                       store_path=f"{tmp}/store", device=dev.type)
+        try:
+            assert world == 1, world
+            assert dev.type != "cuda" or "nccl" in str(dist.get_backend()), dist.get_backend()
+            mesh = make_mesh({"seq": 1, "lm": 1}, device=dev.type)
+            prob = schur_problem(np.random.default_rng(22), dev, 2048)
+            kw = dict(max_iters=10, huber_delta=0.005)
+            got = distributed_full_ba(cam, prob, mesh, **kw)
+            want = ba.full_ba(cam, prob, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), "dist BA != full_ba"
+            walls = {}
+            for name, fn in (("distributed_full_ba", lambda: distributed_full_ba(cam, prob, mesh,
+                                                                                 **kw)),
+                             ("full_ba", lambda: ba.full_ba(cam, prob, **kw))):
+                t = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    t.append(1e3 * (time.perf_counter() - t0))
+                walls[name + "_wall_ms"] = float(np.median(t))
+            cfg = path_config("classical")
+            ms = MultiSlam(cam, [ArraySource(w[0][:DIST_FRAMES]) for w in worlds], mesh, cfg,
+                           refine_every=1, refine_iters=10, device=dev)
+            assert ms.initialize(), "dist: bootstrap failed"
+            n = ms.run_batched(batch=16)
+            costs = [c.cpu().tolist() for c in ms.refine_costs]
+            res = dict(backend=str(dist.get_backend()), ranks=world, bit_equal_to_full_ba=True,
+                       cost=float(got.cost), lockstep_frames=n, refines=len(costs),
+                       refine_costs=costs, **walls)
+            log("dist: " + json.dumps(res))
+            assert len(costs) >= 1 and np.isfinite(costs).all(), costs
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
 CLI_OUT = "build/cli_smoke"
 CLI_FRAMES = 96
 
@@ -1172,26 +1569,44 @@ def main() -> int:
     log(f"kernel build: {time.time() - t0:.1f} s")
 
     from racing_slam_tpu_torch.ops.camera import Camera
+    from racing_slam_tpu_torch.tools.scaling import render_worlds
 
     cam = Camera(fx=480.0, fy=480.0, cx=320.0, cy=240.0, width=640, height=480)
+    lengths = sorted({p[2] for p in PATHS.values()}, reverse=True)
 
     def worlds(seed: int) -> dict:
         """The seed's bench worlds by length (a world depends on its length)."""
-        out = {}
-        for n in sorted({p[2] for p in PATHS.values()}, reverse=True):
-            t0 = time.time()
-            out[n] = render_bench_world(seed, cam, n)
-            log(f"rendered {n} frames of seed {seed} in {time.time() - t0:.1f} s")
+        pool, pending = render_worlds(cam, [(seed, n) for n in lengths])
+        out = dict(zip(lengths, pending.get()))
+        pool.close()
+        pool.join()
         return out
 
-    world = worlds(seeds[0])
-    frames = world[N_FRAMES][0]
+    # Every world of the first seed's paths and the multi path's eight,
+    # rendered by worker processes while the kernels are checked.
+    t_render = time.time()
+    pool, pending = render_worlds(cam, [(seeds[0], n) for n in lengths]
+                                  + [(s, MULTI_FRAMES) for s in MULTI_SEEDS])
 
-    kernels = [check_frontend(frames[1], dev), check_match(dev), check_motion_ba(dev),
-               check_structure_ba(dev), check_match_banded(dev), check_attention(dev)]
+    kernels = [None, check_match(dev), check_motion_ba(dev), check_structure_ba(dev),
+               check_match_banded(dev), check_attention(dev)]
     d256 = check_match(dev, D=256)
     kernels[1]["d256"] = {key: d256[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
-    for kern in kernels:
+    batched = [check_match_batched(dev), check_motion_ba_batched(dev)]
+    b256 = check_match_batched(dev, D=256)
+    batched[0]["d256"] = {key: b256[key] for key in ("max_abs_err", "ms", "singles_ms", "plain_ms",
+                                                     "bound_ms")}
+    rendered = pending.get()
+    pool.close()
+    pool.join()
+    log(f"rendered {len(rendered)} worlds ({sum(len(w[0]) for w in rendered)} frames) in "
+        f"{time.time() - t_render:.1f} s of wall, beside the kernel checks")
+    world = dict(zip(lengths, rendered[:len(lengths)]))
+    multi_worlds = rendered[len(lengths):]
+    frames = world[N_FRAMES][0]
+    kernels[0] = check_frontend(frames[1], dev)
+    batched.insert(0, check_frontend_batched([w[0][1] for w in multi_worlds], dev))
+    for kern in kernels + batched:
         log(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain PyTorch {kern['plain_ms']:.4f} ms, "
             f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library {kern['library_ms']}")
     check_superpoint(frames[1], dev)
@@ -1201,6 +1616,8 @@ def main() -> int:
             for path in PATHS}
     if runs["adaptive"]["essential_predictions"] == 0:
         run_forced_adaptive(dev, cam, *world[N_FRAMES])
+    multi = run_multi(dev, kernels, cam, multi_worlds, args.profile)
+    run_dist(dev, cam, multi_worlds)
     run_cli()
     for seed in seeds[1:]:
         world_s = worlds(seed)
@@ -1208,14 +1625,25 @@ def main() -> int:
             log(f"seed {seed}:")
             run_path(path, dev, kernels, cam, *world_s[PATHS[path][2]])
     table = []
-    for kern in kernels:
-        by_path = {path: r["launches"][kern["name"]] for path, r in runs.items()}
+    # K1, K2 and K3 launch batched on the multi path's lockstep frames: those
+    # launches go to the batched rows, the bootstraps' single-frame launches
+    # to the single rows; K4 (a launch a committing row) counts the multi
+    # path in its own row.
+    in_batched = {"corner_frontend_fused", "guided_match_stage1", "motion_ba_lm"}
+    for kern in kernels + batched:
+        base = kern["name"].split("[")[0]
+        if kern in batched:
+            by_path = {"multi": multi["run_launches"][base]}
+        else:
+            by_path = {path: r["launches"][kern["name"]] for path, r in runs.items()}
+            by_path["multi"] = multi["init_launches" if base in in_batched else "launches"][base]
         row = dict(name=kern["name"], route="cuda", source=kern["source"],
                    replaces=kern["replaces"], launches=sum(by_path.values()),
                    launches_by_path=by_path)
         row.update({key: kern[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")})
-        row.update({key: kern[key] for key in ("d256", "ms_an_iteration", "prune") if key in kern})
+        row.update({key: kern[key] for key in ("d256", "ms_an_iteration", "prune", "singles_ms")
+                    if key in kern})
         table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,7 +39,16 @@
 //   (distance, keypoint index): the lowest index wins a tie, as in the
 //   dense scan.
 //
-// `skip` (may be null) is a device flag: when it is set, the call writes
+// Batched over sequences: S independent problems of the same sizes (the
+// lockstep tracking step of S sequences) are one launch, blockIdx.y =
+// sequence. Each problem gets sms / S persistent CTAs (at least one), so
+// the grid stays one resident wave whatever S is; each CTA bins its own
+// problem's keypoints and strides over its own problem's points. A point's
+// answer depends only on its problem's data (the lexicographic best over
+// candidates in cell order), not on the CTA count, so each problem's
+// result equals a launch of that problem alone to the bit.
+//
+// `skip` (may be null) is a device flag per problem: when it is set, the call writes
 // (0, 1e9) everywhere and returns. The banded matcher launches this kernel
 // as its dense fallback with skip = "the band fit", so that the choice
 // between K5 and K2 is made on the device, without a host read. Only the
@@ -96,6 +105,19 @@ guided_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
                     const float* __restrict__ kp_desc, const uint8_t* __restrict__ kp_ok,
                     const uint8_t* __restrict__ skip, int* __restrict__ best_k,
                     float* __restrict__ best_d, int P, int O, int D, int K, float radius_sq) {
+  {  // this CTA's problem (sequence)
+    const size_t s = blockIdx.y;
+    uv_p += 2 * (size_t)P * s;
+    gate_p += (size_t)P * s;
+    obs_desc += (size_t)P * O * D * s;
+    obs_valid += (size_t)P * O * s;
+    kp_uv += 2 * (size_t)K * s;
+    kp_desc += (size_t)K * D * s;
+    kp_ok += (size_t)K * s;
+    if (SKIP) skip += s;
+    best_k += (size_t)P * s;
+    best_d += (size_t)P * s;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_cell = reinterpret_cast<int*>(smem);                       // [CELL_INTS]
   float* s_red = reinterpret_cast<float*>(s_cell + CELL_INTS);      // [4 * WARPS]
@@ -294,7 +316,7 @@ template <int NCH, bool SKIP>
 cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
                    const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
                    const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip, int* best_k,
-                   float* best_d, int P, int O, int D, int K, float radius_sq) {
+                   float* best_d, int S, int P, int O, int D, int K, float radius_sq) {
   const auto kernel = guided_match_kernel<NCH, SKIP>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -305,8 +327,9 @@ cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const int need = (P + WARPS - 1) / WARPS;  // no more CTAs than a warp a point
-  const int blocks = sms < need ? sms : need;
-  kernel<<<blocks, THREADS, smem, stream>>>(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc,
+  const int per_seq = sms / S > 1 ? sms / S : 1;  // one resident wave over all S problems
+  const dim3 grid(per_seq < need ? per_seq : need, S);
+  kernel<<<grid, THREADS, smem, stream>>>(uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc,
                                             kp_ok, skip, best_k, best_d, P, O, D, K, radius_sq);
   return cudaGetLastError();
 }
@@ -315,25 +338,30 @@ template <int NCH>
 cudaError_t dispatch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
                      const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const float* kp_uv,
                      const float* kp_desc, const uint8_t* kp_ok, const uint8_t* skip,
-                     int* best_k, float* best_d, int P, int O, int D, int K, float radius_sq) {
+                     int* best_k, float* best_d, int S, int P, int O, int D, int K,
+                     float radius_sq) {
   return (skip != nullptr ? launch<NCH, true> : launch<NCH, false>)(
-      stream, uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, P,
-      O, D, K, radius_sq);
+      stream, uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip, best_k, best_d, S,
+      P, O, D, K, radius_sq);
 }
 
 }  // namespace
 
+// S problems: uv_p [S, P, 2], gate_p [S, P], obs_desc [S, P, O, D],
+// obs_valid [S, P, O], kp_uv [S, K, 2], kp_desc [S, K, D], kp_ok [S, K],
+// skip [S] or null, best_k and best_d [S, P].
 SLAM_API int slam_guided_match(const float* uv_p, const uint8_t* gate_p,
                                const __nv_bfloat16* obs_desc, const uint8_t* obs_valid,
                                const float* kp_uv, const float* kp_desc, const uint8_t* kp_ok,
-                               const uint8_t* skip, int* best_k, float* best_d, int P, int O,
-                               int D, int K, float radius_sq, cudaStream_t stream) {
+                               const uint8_t* skip, int* best_k, float* best_d, int S, int P,
+                               int O, int D, int K, float radius_sq, cudaStream_t stream) {
   const bool aligned = reinterpret_cast<uintptr_t>(kp_desc) % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(kp_uv) % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(obs_desc) % 4 == 0;  // word loads
-  if (P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 || K < 0 || !aligned)
+  if (S < 1 || S > 65535 || P < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 ||
+      K < 0 || !aligned)
     return (int)cudaErrorInvalidValue;
   return (int)(D <= 128 ? dispatch<8> : dispatch<16>)(stream, uv_p, gate_p, obs_desc, obs_valid,
                                                       kp_uv, kp_desc, kp_ok, skip, best_k, best_d,
-                                                      P, O, D, K, radius_sq);
+                                                      S, P, O, D, K, radius_sq);
 }

@@ -39,6 +39,12 @@
 //   redundantly from the totals, one barrier an iteration, was slower on
 //   an H100, tools/match_ab.py: sixteen warps issuing the same serial
 //   solve keep the SM's four schedulers busy four times as long as one.)
+//
+// Batched over sequences: S independent solves of K rows each (the
+// lockstep tracking step of S sequences) are one launch of S CTAs,
+// blockIdx.x = sequence, each on its own rows, pose and [8] output. A
+// CTA's work is the single solve's, so each sequence's result equals a
+// launch of that sequence alone to the bit; S = 1 is the single solve.
 #include "common.cuh"
 
 namespace {
@@ -176,6 +182,14 @@ motion_ba_kernel(const float* __restrict__ pose0, const float* __restrict__ kp_u
   int* s_cnt = reinterpret_cast<int*>(s_xf + 24);               // [CH][WARPS] + total
   float* s_rows = s_xf + 24 + CH * WARPS + 4;                   // [5][K]: x, y, z, u, v
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  {  // this CTA's sequence
+    const size_t s = blockIdx.x;
+    pose0 += 6 * s;
+    kp_uv += 2 * (size_t)K * s;
+    xyz += 3 * (size_t)K * s;
+    valid += (size_t)K * s;
+    out += 8 * s;
+  }
 
   // Compact the valid rows into shared memory, pre-normalised: CH rows a
   // thread loaded together, a ballot per row, the warps' counts scanned by
@@ -336,27 +350,29 @@ motion_ba_kernel(const float* __restrict__ pose0, const float* __restrict__ kp_u
 
 template <bool IN_SHARED>
 cudaError_t launch(size_t smem, cudaStream_t stream, const float* pose0, const float* kp_uv,
-                   const float* xyz, const uint8_t* valid, float* out, int K, float fx, float cx,
-                   float cy, float lam0, float huber, float ftol, int max_iters) {
+                   const float* xyz, const uint8_t* valid, float* out, int S, int K, float fx,
+                   float cx, float cy, float lam0, float huber, float ftol, int max_iters) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       motion_ba_kernel<IN_SHARED>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return attr;
-  motion_ba_kernel<IN_SHARED><<<1, THREADS, smem, stream>>>(
+  motion_ba_kernel<IN_SHARED><<<S, THREADS, smem, stream>>>(
       pose0, kp_uv, xyz, valid, out, K, fx, cx, cy, lam0, huber, ftol, max_iters);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// S solves of K rows each: pose0 [S, 6], kp_uv [S, K, 2], xyz [S, K, 3],
+// valid [S, K], out [S, 8].
 SLAM_API int slam_motion_ba(const float* pose0, const float* kp_uv, const float* xyz,
-                            const uint8_t* valid, float* out, int K, float fx, float cx,
+                            const uint8_t* valid, float* out, int S, int K, float fx, float cx,
                             float cy, float lam0, float huber, float ftol, int max_iters,
                             cudaStream_t stream) {
-  if (K < 0 || max_iters < 0) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 65535 || K < 0 || max_iters < 0) return (int)cudaErrorInvalidValue;
   const size_t rows = (size_t)K * 5 * sizeof(float);
   const bool in_shared = FIXED_BYTES + rows <= SMEM_MAX;
   return (int)(in_shared ? launch<true> : launch<false>)(FIXED_BYTES + (in_shared ? rows : 0),
                                                          stream, pose0, kp_uv, xyz, valid, out,
-                                                         K, fx, cx, cy, lam0, huber, ftol,
+                                                         S, K, fx, cx, cy, lam0, huber, ftol,
                                                          max_iters);
 }

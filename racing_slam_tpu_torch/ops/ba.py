@@ -251,15 +251,18 @@ def motion_ba(
     max_iters: int = MAX_ITERS,
     huber_delta: float = HUBER_DELTA,
 ) -> MotionBAResult:
-    """Optimise a single pose against fixed 3D points (kernel K3)."""
+    """Optimise a single pose against fixed 3D points (kernel K3); with a
+    leading S on every operand (rvec [S, 3], kp_uv [S, K, 2], ...), S poses
+    in one launch."""
     from .kernels.motion_ba import motion_ba_lm
 
-    pose0 = torch.cat([rvec, t]).to(torch.float32)
+    pose0 = torch.cat([rvec, t], dim=-1).to(torch.float32).contiguous()
     out = motion_ba_lm(
         pose0, kp_uv.contiguous(), point_xyz.contiguous(), valid.contiguous(),
         fx=cam.fx, cx=cam.cx, cy=cam.cy, max_iters=max_iters, huber_delta=huber_delta,
     )
-    return MotionBAResult(rvec=out[:3], t=out[3:6], cost=out[6], num_residuals=valid.sum())
+    return MotionBAResult(rvec=out[..., :3], t=out[..., 3:6], cost=out[..., 6],
+                          num_residuals=valid.sum(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -450,22 +453,28 @@ def back_substitute_points(rs: ReducedSystem, delta_c: torch.Tensor,
     return -torch.einsum("pij,pj->pi", rs.Hpp_inv, rs.g_p + Wt_dc)
 
 
+def _no_reduce(xs: list) -> list:
+    return xs
+
+
 def _lm(cam: Camera, prob: BAProblem, trial, max_iters: int, init_lambda: float,
-        huber_delta: float) -> BAResult:
+        huber_delta: float, allreduce=_no_reduce) -> BAResult:
     """The accept/reject LM loop of window_ba and full_ba without a host
     read: `max_iters` iterations run, and a device-side `done` flag freezes
     the state from the iteration at which the JAX while_loop would have
     exited (function tolerance or lambda > 1e8). `trial(cr, ct, X, lam)`
-    returns the trial parameters."""
+    returns the trial parameters. `allreduce` sums a list of tensors over
+    the landmark shards of a distributed solve (parallel/dist_ba.py); the
+    costs and the residual count go through it."""
     dev = prob.points.device
     cr, ct, X = prob.cam_rvec, prob.cam_t, prob.points
-    cost = _problem_cost(cam, prob, huber_delta)
+    cost = allreduce([_problem_cost(cam, prob, huber_delta)])[0]
     lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(max_iters):
         cr_n, ct_n, X_n = trial(cr, ct, X, lam)
-        new_cost = _problem_cost(cam, prob._replace(cam_rvec=cr_n, cam_t=ct_n, points=X_n),
-                                  huber_delta)
+        new_cost = allreduce([_problem_cost(
+            cam, prob._replace(cam_rvec=cr_n, cam_t=ct_n, points=X_n), huber_delta)])[0]
         accept = new_cost < cost
         stop = (accept & (cost - new_cost <= FUNCTION_TOLERANCE * cost)) | (lam > 1e8)
         take = accept & ~done
@@ -477,7 +486,8 @@ def _lm(cam: Camera, prob: BAProblem, trial, max_iters: int, init_lambda: float,
         cost = torch.where(take, new_cost, cost)
         done = done | stop
     include, _ = obs_include(prob)
-    return BAResult(cam_rvec=cr, cam_t=ct, points=X, cost=cost, num_residuals=include.sum())
+    return BAResult(cam_rvec=cr, cam_t=ct, points=X, cost=cost,
+                    num_residuals=allreduce([include.sum()])[0])
 
 
 def window_ba(
@@ -520,11 +530,19 @@ def full_ba(
     max_iters: int = MAX_ITERS,
     init_lambda: float = 1e-4,
     huber_delta: float = HUBER_DELTA,
+    allreduce=_no_reduce,
 ) -> BAResult:
     """Schur-complement LM over keyframes and points (the periodic
     refinement's solver): reduced camera system, dense solve, point
     back-substitution, accept/reject. Plain PyTorch: the JAX package has
-    no Pallas kernel here."""
+    no Pallas kernel here.
+
+    The distributed solver (parallel/dist_ba.py) is this loop over a
+    landmark shard: `prob` then holds the shard's points, and `allreduce`
+    sums the shards' reduced systems (S, g_red), in one call an iteration,
+    and their costs; the camera solve is the same on every shard and the
+    back-substitution stays local. By default nothing is reduced: the
+    single-device solver."""
     F = prob.cam_rvec.shape[0]
     safe_cam = torch.clamp(prob.obs_cam, 0, F - 1).long()
     cf = prob.cam_free[:, None]
@@ -533,11 +551,12 @@ def full_ba(
     def trial(cr, ct, X, lam):
         rs, _ = build_reduced_system(cam, prob._replace(cam_rvec=cr, cam_t=ct, points=X), lam,
                                      huber_delta)
-        delta_c = solve_camera_system(rs.S, rs.g_red, prob.cam_free)
+        S, g_red = allreduce([rs.S, rs.g_red])
+        delta_c = solve_camera_system(S, g_red, prob.cam_free)
         delta_p = back_substitute_points(rs, delta_c, safe_cam)
         return cr + delta_c[:, :3] * cf, ct + delta_c[:, 3:] * cf, X + delta_p * pf
 
-    return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta)
+    return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta, allreduce)
 
 
 def structure_ba(

@@ -90,39 +90,44 @@ def select_corners_from_maps(
     quality: float = DEFAULT_QUALITY,
     n_per_cell: int = 2,
 ) -> Corners:
-    """Grid-cell top-n + quality gate + sub-pixel refinement on [H, W] maps."""
-    H, W = score.shape
+    """Grid-cell top-n + quality gate + sub-pixel refinement on [H, W] maps,
+    or on [B, H, W] maps of B frames (each gated against its own best
+    peak); the outputs take the same leading axis."""
+    single = score.dim() == 2
+    if single:
+        score, peak_score = score[None], peak_score[None]
+    B, H, W = score.shape
     Hp = -(-H // cell) * cell
     Wp = -(-W // cell) * cell
     gh, gw = Hp // cell, Wp // cell
-    padded = torch.zeros((Hp, Wp), dtype=peak_score.dtype, device=peak_score.device)
-    padded[:H, :W] = peak_score
-    cells = padded.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(
-        gh * gw, cell * cell
+    padded = torch.zeros((B, Hp, Wp), dtype=peak_score.dtype, device=peak_score.device)
+    padded[:, :H, :W] = peak_score
+    cells = padded.reshape(B, gh, cell, gw, cell).permute(0, 1, 3, 2, 4).reshape(
+        B, gh * gw, cell * cell
     )
     bests, best_scores = [], []
     for _ in range(n_per_cell):
         b = torch.argmax(cells, dim=-1)  # first maximum, as jnp.argmax
-        sc = torch.gather(cells, 1, b[:, None])[:, 0]
+        sc = torch.gather(cells, 2, b[..., None])[..., 0]
         bests.append(b)
         best_scores.append(sc)
-        cells = cells.scatter(1, b[:, None], 0.0)
-    best = torch.cat(bests)
-    best_score = torch.cat(best_scores)
+        cells = cells.scatter(2, b[..., None], 0.0)
+    best = torch.cat(bests, dim=1)
+    best_score = torch.cat(best_scores, dim=1)
 
     cell_ids = torch.arange(gh * gw, device=score.device).repeat(n_per_cell)
     cy = (cell_ids // gw) * cell + best // cell
     cx = (cell_ids % gw) * cell + best % cell
 
-    thresh = quality * torch.max(best_score)
+    thresh = quality * torch.amax(best_score, dim=1, keepdim=True)
     valid = best_score > torch.clamp(thresh, min=1e-12)
 
     cyc = torch.clamp(cy, 1, H - 2)
     cxc = torch.clamp(cx, 1, W - 2)
-    flat = score.reshape(-1)
+    flat = score.reshape(B, H * W)
 
     def s(dy, dx):
-        return flat[(cyc + dy) * W + (cxc + dx)]
+        return torch.gather(flat, 1, (cyc + dy) * W + (cxc + dx))
 
     c0, xm, xp, ym, yp = s(0, 0), s(0, -1), s(0, 1), s(-1, 0), s(1, 0)
     denom_x = xm - 2.0 * c0 + xp
@@ -133,4 +138,6 @@ def select_corners_from_maps(
     dx = torch.clamp(dx, -0.5, 0.5)
     dy = torch.clamp(dy, -0.5, 0.5)
     xy = torch.stack([cxc.to(torch.float32) + dx, cyc.to(torch.float32) + dy], dim=-1)
+    if single:
+        return Corners(xy=xy[0], score=best_score[0], valid=valid[0])
     return Corners(xy=xy, score=best_score, valid=valid)

@@ -38,13 +38,13 @@ SIGNATURES = {
     # img, mask|NULL, resp, peaks, blur2, B, H, W, taps1, r1, taps2, r2, border, stream
     "slam_frontend": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
     # uv_p, gate_p, obs_desc, obs_valid, kp_uv, kp_desc, kp_ok, skip|NULL, best_k,
-    # best_d, P, O, D, K, radius_sq, stream
-    "slam_guided_match": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    # best_d, S, P, O, D, K, radius_sq, stream
+    "slam_guided_match": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
     # uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts, n_act,
     # best_k, best_d, P, G, O, D, K, tile_p, tile_k, band, radius_sq, stream
     "slam_guided_match_banded": [_P] * 12 + [_I] * 8 + [_F, _P],
-    # pose0, kp_uv, xyz, valid, out, K, fx, cx, cy, lam0, huber, ftol, iters, stream
-    "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _P],
+    # pose0, kp_uv, xyz, valid, out, S, K, fx, cx, cy, lam0, huber, ftol, iters, stream
+    "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,
     # out, points_out, scratch|NULL, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
     # cluster, stream

@@ -16,6 +16,11 @@ mask. The kernel runs the whole loop in one block: one launch per solve, a
 real early exit, no host synchronisation. The valid rows are compacted
 once into shared memory, and each iteration is one fused pass at the trial
 pose (cost, weights, H and g together) and one block reduction.
+
+Batched: S solves (the lockstep step of S sequences) take leading-S
+operands, pose0 [S, 6], kp_uv [S, K, 2], point_xyz [S, K, 3], valid [S, K],
+and return [S, 8], in one launch of S blocks; each row equals the solve of
+that row alone to the bit. One launch is one count, whatever S is.
 """
 
 from __future__ import annotations
@@ -48,11 +53,17 @@ def motion_ba_lm_reference(
     ftol: float = FUNCTION_TOLERANCE,
     init_lambda: float = 1e-4,
 ) -> torch.Tensor:
-    """Plain-PyTorch twin: returns [8] (rvec, t, cost, iterations).
+    """Plain-PyTorch twin: returns [8] (rvec, t, cost, iterations), or [S, 8]
+    for leading-S operands, row by row.
 
     The data-dependent exit is a `done` mask that freezes the state, so the
     loop runs max_iters times without reading anything back.
     """
+    if pose0.dim() == 2:
+        return torch.stack([
+            motion_ba_lm_reference(*row, fx=fx, cx=cx, cy=cy, max_iters=max_iters,
+                                   huber_delta=huber_delta, ftol=ftol, init_lambda=init_lambda)
+            for row in zip(pose0, kp_uv, point_xyz, valid)])
     K = kp_uv.shape[0]
     dev = pose0.device
 
@@ -110,20 +121,25 @@ def motion_ba_lm(
     ftol: float = FUNCTION_TOLERANCE,
     init_lambda: float = 1e-4,
 ) -> torch.Tensor:
-    """Fused LM solve; returns [8] f32 (rvec, t, cost, iterations)."""
+    """Fused LM solve; returns [8] f32 (rvec, t, cost, iterations), or [S, 8]
+    for S solves given leading-S operands (one launch)."""
     kwargs = dict(fx=fx, cx=cx, cy=cy, max_iters=max_iters, huber_delta=huber_delta,
                   ftol=ftol, init_lambda=init_lambda)
     if _build.device_kind(pose0, kp_uv, point_xyz, valid) == "cpu":
         return motion_ba_lm_reference(pose0, kp_uv, point_xyz, valid, **kwargs)
-    K = kp_uv.shape[0]
-    _build.expect(pose0, "pose0", torch.float32, (6,))
-    _build.expect(kp_uv, "kp_uv", torch.float32, (K, 2))
-    _build.expect(point_xyz, "point_xyz", torch.float32, (K, 3))
-    _build.expect(valid, "valid", torch.bool, (K,))
-    out = torch.empty((8,), dtype=torch.float32, device=pose0.device)
+    lead = tuple(pose0.shape[:-1])  # () or (S,)
+    if len(lead) > 1:
+        raise ValueError(f"pose0: expected [6] or [S, 6], got {tuple(pose0.shape)}")
+    S = lead[0] if lead else 1
+    K = kp_uv.shape[-2]
+    _build.expect(pose0, "pose0", torch.float32, (*lead, 6))
+    _build.expect(kp_uv, "kp_uv", torch.float32, (*lead, K, 2))
+    _build.expect(point_xyz, "point_xyz", torch.float32, (*lead, K, 3))
+    _build.expect(valid, "valid", torch.bool, (*lead, K))
+    out = torch.empty((*lead, 8), dtype=torch.float32, device=pose0.device)
     err = _build.lib().slam_motion_ba(
         _build.ptr(pose0), _build.ptr(kp_uv), _build.ptr(point_xyz), _build.ptr(valid),
-        _build.ptr(out), K, float(fx), float(cx), float(cy), float(init_lambda),
+        _build.ptr(out), S, K, float(fx), float(cx), float(cy), float(init_lambda),
         float(huber_delta), float(ftol), int(max_iters), _build.stream(pose0.device),
     )
     _build.check(err, "motion_ba_lm")

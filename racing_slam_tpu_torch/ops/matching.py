@@ -94,11 +94,16 @@ def match_map_to_frame(
 
     Stage 1 is kernel K2 ("auto") or the banded search with kernel K5
     ("banded") for CUDA tensors, and their plain twins for CPU tensors.
+    With a leading S on every operand (pose [S, 4, 4], point_xyz [S, P, 3],
+    kp_uv [S, K, 2], ...) it matches S independent frames, K2 once for all
+    ("auto" only); the outputs take the leading S.
     """
     if backend not in ("auto", "banded"):
         raise ValueError(f"backend={backend!r}: 'auto' or 'banded'")
-    P = point_xyz.shape[0]
-    K = kp_uv.shape[0]
+    if backend == "banded" and pose.dim() > 2:
+        raise NotImplementedError("the banded matcher takes one frame at a time")
+    P = point_xyz.shape[-2]
+    K = kp_uv.shape[-2]
     uv_p, depth = project_with_depth(cam, pose, point_xyz)
     gate_p = point_mask & ~point_already_matched & is_in_image(cam, uv_p) & (depth > 0.0)
     kp_ok = kp_valid & ~kp_already_matched
@@ -231,16 +236,18 @@ def _banded_stage1(
 
 
 def _stage2(best_k: torch.Tensor, best_d: torch.Tensor, P: int, K: int) -> MapMatches:
-    """Best point per keypoint by scatter-min; lowest point index wins ties."""
+    """Best point per keypoint by scatter-min; lowest point index wins ties.
+    [P] -> [K], or [S, P] -> [S, K] row by row."""
     dev = best_d.device
-    kp_best_d = torch.full((K,), _BIG, dtype=best_d.dtype, device=dev).scatter_reduce(
-        0, best_k, best_d, reduce="amin"
+    lead = best_d.shape[:-1]
+    kp_best_d = torch.full((*lead, K), _BIG, dtype=best_d.dtype, device=dev).scatter_reduce(
+        -1, best_k, best_d, reduce="amin"
     )
-    pid = torch.arange(P, device=dev)
-    is_winner = best_d <= kp_best_d[best_k]
+    pid = torch.arange(P, device=dev).expand(*lead, P)
+    is_winner = best_d <= torch.gather(kp_best_d, -1, best_k)
     cand = torch.where(is_winner & (best_d < _BIG), pid, torch.full_like(pid, P))
-    kp_point = torch.full((K,), P, dtype=pid.dtype, device=dev).scatter_reduce(
-        0, best_k, cand, reduce="amin"
+    kp_point = torch.full((*lead, K), P, dtype=pid.dtype, device=dev).scatter_reduce(
+        -1, best_k, cand, reduce="amin"
     )
     valid = (kp_best_d < _BIG) & (kp_point < P)
     return MapMatches(

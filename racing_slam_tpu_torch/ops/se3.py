@@ -3,6 +3,10 @@
 A pose is a 4x4 float32 world->camera transform; optimisation uses the
 (rvec, t) angle-axis + translation packing. All functions broadcast over
 leading dims and branch on small angles with torch.where, never on the host.
+Their small matrix products are summed in a fixed order (matmul_in_order),
+so that a pose of a stack gives the same bits as it does alone: the
+lockstep step of S sequences must predict and commit each row as the
+single step does.
 """
 
 from __future__ import annotations
@@ -10,6 +14,19 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+
+
+def matmul_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for small matrices ([..., n, k] x [..., k, m], broadcasting):
+    each product rounded alone and the k terms added in index order, by
+    elementwise ops whose rounding does not depend on the batch. A library
+    product does not promise that: on the CPU, bmm over a stack of 4x4
+    poses and mm over one of them differ in the last bit."""
+    p = a[..., :, :, None] * b[..., None, :, :]
+    out = p[..., 0, :]
+    for k in range(1, p.shape[-2]):
+        out = out + p[..., k, :]
+    return out
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -43,7 +60,7 @@ def exp_so3(rvec: torch.Tensor) -> torch.Tensor:
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
     W = hat(rvec)
-    WW = W @ W
+    WW = matmul_in_order(W, W)
     return _eye3(rvec) + a[..., None, None] * W + b[..., None, None] * WW
 
 
@@ -99,7 +116,7 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid 4x4 transform (R^T, -R^T t)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
     t = T[..., :3, 3]
-    ti = -torch.einsum("...ij,...j->...i", Rt, t)
+    ti = -matmul_in_order(Rt, t[..., :, None])[..., 0]
     top = torch.cat([Rt, ti[..., :, None]], dim=-1)
     bottom = torch.zeros(T.shape[:-2] + (1, 4), dtype=T.dtype, device=T.device)
     bottom[..., 0, 3].fill_(1.0)
@@ -107,8 +124,8 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
 
 
 def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
-    """Ta @ Tb with broadcasting (applies Tb first)."""
-    return Ta @ Tb
+    """Ta @ Tb with broadcasting (applies Tb first), in a fixed order."""
+    return matmul_in_order(Ta, Tb)
 
 
 def transform_points(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

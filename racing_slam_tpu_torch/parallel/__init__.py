@@ -1,2 +1,2 @@
-"""Whole-map refinement on the live state (the mesh-sharded step comes with
-the distributed slice)."""
+"""Multi-sequence tracking, landmark-sharded bundle adjustment and whole-map
+refinement (port of racing_slam_tpu/parallel)."""

@@ -5,8 +5,9 @@ A periodic FULL bundle adjustment over the live SlamState: every keyframe
 pose except the two gauge anchors and every map point free. A monocular
 map has a similarity gauge; freezing the two OLDEST valid keyframes pins
 pose and scale as the bootstrap does (reference frame fixed, unit
-baseline). The landmark-sharded step over a device mesh
-(`make_refine_step`) belongs to the distributed slice.
+baseline). `make_refine_step` runs it over every row of a stacked
+multi-sequence state, each row's landmarks split over the mesh's 'lm'
+ranks (parallel/dist_ba.py).
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from ..ops import se3
-from ..ops.ba import BAProblem, BAResult
-from ..slam.state import SlamState, get_row, set_drop
+from ..ops.ba import HUBER_DELTA, BAProblem, BAResult
+from ..ops.camera import Camera
+from ..slam.state import SlamState, get_row, set_drop, set_state_row, state_row
 
 
 def gauge_anchor_mask(kfs_valid: torch.Tensor, frame_index: torch.Tensor) -> torch.Tensor:
@@ -106,3 +108,30 @@ def apply_refinement_compact(state: SlamState, res: BAResult, sel: torch.Tensor,
     P = state.map.pos.shape[0]
     pos = set_drop(state.map.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points)
     return apply_refinement(state, res._replace(points=pos))
+
+
+def make_refine_step(
+    cam: Camera,
+    mesh=None,
+    max_iters: int = 10,
+    huber_delta: float = HUBER_DELTA,
+):
+    """The stacked-state refinement: fn(states [S, ...]) -> (states, cost
+    [S]). Per row: build_global_problem, the landmark-sharded full BA over
+    `mesh`'s 'lm' axis (batched_distributed_full_ba; single device with no
+    mesh), apply_refinement. The rows are this rank's; they are written
+    back in place (slam.state.set_state_row). As in the JAX package, no
+    cull follows (the single-sequence Slam culls after its refinement)."""
+    from .dist_ba import batched_distributed_full_ba
+
+    def refine(states: SlamState) -> tuple[SlamState, torch.Tensor]:
+        S = states.num_kf.shape[0]
+        rows = [state_row(states, i) for i in range(S)]
+        probs = BAProblem(*[torch.stack(xs) for xs in zip(*map(build_global_problem, rows))])
+        res = batched_distributed_full_ba(cam, probs, mesh, max_iters=max_iters,
+                                          huber_delta=huber_delta)
+        for i, row in enumerate(rows):
+            set_state_row(states, i, apply_refinement(row, BAResult(*[x[i] for x in res])))
+        return states, res.cost
+
+    return refine

@@ -66,7 +66,9 @@ class ClassicalFrontend:
         return self.n_per_cell * (-(-height // self.cell)) * (-(-width // self.cell))
 
     def extract(self, img: torch.Tensor, mask: torch.Tensor | None = None) -> Features:
-        """Features of one float32 [H, W] frame; `mask` [H, W], nonzero = allowed."""
+        """Features of one float32 [H, W] frame, or of S frames [S, H, W] with
+        one K1 launch (Features with a leading S); `mask` [H, W], nonzero =
+        allowed."""
         score, peaks, blurred = corner_frontend_fused(img, mask)
         c = select_corners_from_maps(score, peaks, cell=self.cell, n_per_cell=self.n_per_cell)
         d = extract_descriptors_cells(img, c.xy, self.cell, self.n_per_cell, blurred=blurred)

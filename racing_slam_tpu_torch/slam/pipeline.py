@@ -87,6 +87,9 @@ from .state import (
     point_reprojection_errors_sel,
     remove_points,
     set_drop,
+    set_state_row,
+    state_row,
+    tree_map,
     write_keyframe,
 )
 
@@ -135,12 +138,6 @@ def _shapes(tree: tuple) -> list:
 
 def _huber(cfg: SlamConfig, cam: Camera) -> float:
     return HUBER_DELTA / cam.fx if cfg.huber_mode == "pixel" else HUBER_DELTA
-
-
-def _point_matched_mask(P: int, matches: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[P] bool: map slots referenced by the frame's match array."""
-    tgt = torch.where(valid & (matches >= 0), matches, torch.full_like(matches, P))
-    return set_drop(torch.zeros((P,), dtype=torch.bool, device=matches.device), tgt, True)
 
 
 def _commit_keyframe(
@@ -328,6 +325,111 @@ def _essential_prediction(state: SlamState, feat: Features, generator, uniforms,
     return se3.rt_from_matrix(se3.compose(rel, T_last))
 
 
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the axis after idx's leading ones (idx clamped to >= 0):
+    [P, 3] by [K] -> [K, 3], or row by row [S, P, 3] by [S, K] -> [S, K, 3]."""
+    axis = idx.dim() - 1
+    idx = torch.clamp(idx, min=0)
+    return torch.gather(x, axis, idx.reshape(*idx.shape, *[1] * (x.dim() - axis - 1)).expand(
+        *idx.shape, *x.shape[axis + 1:]))
+
+
+def _motion_prediction(state: SlamState, cfg: SlamConfig):
+    """The constant-velocity prediction, T_pred = (T_last inv(T_prev)) T_last,
+    or the last pose (constant position, and adaptive above its threshold);
+    for one state or S stacked ones, a row of which predicts to the bit
+    what it would alone (se3.compose sums in a fixed order)."""
+    if cfg.pose_prediction == "constant_velocity":
+        T_last = se3.pose_matrix(state.last_rvec, state.last_t)
+        T_prev = se3.pose_matrix(state.prev_rvec, state.prev_t)
+        return se3.rt_from_matrix(se3.compose(se3.compose(T_last, se3.inverse(T_prev)), T_last))
+    if cfg.pose_prediction in ("constant_position", "adaptive"):
+        return state.last_rvec, state.last_t
+    raise ValueError(f"unknown pose_prediction {cfg.pose_prediction!r}")
+
+
+class _Tracked(NamedTuple):
+    state: SlamState  # last pose, features, matches and inliers replaced
+    matches: torch.Tensor
+    n_kf_matches: torch.Tensor
+    n_total: torch.Tensor
+    n_last: torch.Tensor
+    is_kf: torch.Tensor
+    band_fallbacks: torch.Tensor | None
+
+
+def _track(state: SlamState, feat: Features, rvec: torch.Tensor, t: torch.Tensor, *,
+           cam: Camera, cfg: SlamConfig, frontend) -> _Tracked:
+    """The tracking core of slam_step and slam_step_multi, from the
+    predicted pose: match the last keyframe's points and optimise the pose,
+    match the rest of the map and optimise again, then the keyframe
+    decision and the post-solve inliers (the loss signal). For one state,
+    or for S stacked ones (a leading S on every leaf, on `feat` and on the
+    prediction), where each of K2 and K3 launches once for all rows."""
+    P = cfg.map_capacity
+    m = state.map
+    lead = feat.valid.shape[:-1]
+    K = feat.valid.shape[-1]
+    dev = feat.xy.device
+    huber = _huber(cfg, cam)
+    obs_dvalid = m.obs_valid & m.valid[..., None]
+    no_kp_matched = torch.zeros((*lead, K), dtype=torch.bool, device=dev)
+    no_pt_matched = torch.zeros((*lead, P), dtype=torch.bool, device=dev)
+    match_kw = dict(max_distance=frontend.max_distance, radius_px=cfg.match_radius_px,
+                    backend=cfg.matching_backend)
+
+    # Match the last keyframe's points, then optimise the pose.
+    observed = torch.any((m.obs_kf == state.last_kf_slot[..., None, None]) & m.obs_valid, dim=-1)
+    mm1 = match_map_to_frame(
+        cam, se3.pose_matrix(rvec, t), m.pos, observed & m.valid, state.obs_desc, obs_dvalid,
+        feat.xy, feat.desc, feat.valid, no_kp_matched, no_pt_matched, **match_kw,
+    )
+    matches = torch.where(mm1.valid, mm1.point_idx, torch.full_like(mm1.point_idx, -1))
+    n_kf_matches = torch.sum(matches >= 0, dim=-1)
+
+    def optimise(rvec, t, matches):
+        if not cfg.optimize_pose:
+            return rvec, t
+        res = motion_ba(cam, rvec, t, feat.xy, _gather_rows(m.pos, matches), matches >= 0,
+                        max_iters=cfg.motion_ba_iters, huber_delta=huber)
+        return res.rvec, res.t
+
+    rvec, t = optimise(rvec, t, matches)
+
+    # Match the whole map (keypoints and points not matched yet), optimise.
+    tgt = torch.where(feat.valid & (matches >= 0), matches, torch.full_like(matches, P))
+    pt_matched = torch.zeros((*lead, P + 1), dtype=torch.bool, device=dev).scatter(
+        -1, tgt, True)[..., :P]
+    mm2 = match_map_to_frame(
+        cam, se3.pose_matrix(rvec, t), m.pos, m.valid, state.obs_desc, obs_dvalid, feat.xy,
+        feat.desc, feat.valid, matches >= 0, pt_matched, **match_kw,
+    )
+    matches = torch.where(mm2.valid & (matches < 0), mm2.point_idx, matches)
+    rvec, t = optimise(rvec, t, matches)
+
+    # Keyframe decision + post-solve inliers (the loss signal).
+    n_total = torch.sum((matches >= 0) & feat.valid, dim=-1)
+    last_slot = state.last_kf_slot[..., None]
+    last_m = _gather_rows(state.kfs.matches, last_slot)[..., 0, :]
+    last_v = _gather_rows(state.kfs.kp_valid, last_slot)[..., 0, :]
+    n_last = torch.sum((last_m >= 0) & last_v, dim=-1)
+    is_kf = n_total < cfg.keyframe_match_ratio * n_last
+    uv_m, depth_m = project_with_depth(cam, se3.pose_matrix(rvec, t), _gather_rows(m.pos, matches))
+    reproj_m = torch.linalg.norm(uv_m - feat.xy, dim=-1)
+    n_inliers = torch.sum((matches >= 0) & feat.valid & (depth_m > 0.0)
+                          & (reproj_m < cfg.inlier_px), dim=-1)
+    if cfg.min_commit_inliers:
+        is_kf = is_kf | (n_inliers < cfg.min_commit_inliers)
+
+    state = state._replace(
+        last_rvec=rvec, last_t=t, prev_rvec=state.last_rvec, prev_t=state.last_t,
+        last_feat=feat, last_matches=matches, last_inliers=n_inliers,
+    )
+    fell_back = None if mm1.fell_back is None \
+        else mm1.fell_back.to(I64) + mm2.fell_back.to(I64)
+    return _Tracked(state, matches, n_kf_matches, n_total, n_last, is_kf, fell_back)
+
+
 def slam_step(
     state: SlamState,
     img: torch.Tensor,
@@ -348,11 +450,9 @@ def slam_step(
     `last_inliers` is `state.last_inliers` as a host int, on which the
     adaptive prediction branches; `Slam` passes the one it read with the
     previous frame, and when it is None the step reads it (a second read)."""
-    P = cfg.map_capacity
     if img.dtype == torch.uint8:
         img = img.to(torch.float32) * (1.0 / 255.0)
     feat = frontend.extract(img, mask)
-    last_slot = state.last_kf_slot
 
     essential = cfg.essential_matrix_estimation
     if not essential and cfg.pose_prediction == "adaptive":
@@ -363,98 +463,178 @@ def slam_step(
         rvec, t = _essential_prediction(state, feat, generator, uniforms, cam=cam, cfg=cfg,
                                         matcher=frontend.matcher,
                                         rescale=not cfg.essential_matrix_estimation)
-    elif cfg.pose_prediction == "constant_velocity":
-        # T_pred = (T_last inv(T_prev)) T_last.
-        T_last = se3.pose_matrix(state.last_rvec, state.last_t)
-        T_prev = se3.pose_matrix(state.prev_rvec, state.prev_t)
-        rvec, t = se3.rt_from_matrix(T_last @ se3.inverse(T_prev) @ T_last)
-    elif cfg.pose_prediction in ("constant_position", "adaptive"):
-        rvec, t = state.last_rvec, state.last_t
     else:
-        raise ValueError(f"unknown pose_prediction {cfg.pose_prediction!r}")
+        rvec, t = _motion_prediction(state, cfg)
 
-    huber = _huber(cfg, cam)
-    obs_dvalid = state.map.obs_valid & state.map.valid[:, None]
-    K = feat.xy.shape[0]
-    no_kp_matched = torch.zeros((K,), dtype=torch.bool, device=img.device)
-    no_pt_matched = torch.zeros((P,), dtype=torch.bool, device=img.device)
-    match_kw = dict(max_distance=frontend.max_distance, radius_px=cfg.match_radius_px,
-                    backend=cfg.matching_backend)
-
-    # Match the last keyframe's points, then optimise the pose.
-    filt = state.map.observed_by(last_slot) & state.map.valid
-    mm1 = match_map_to_frame(
-        cam, se3.pose_matrix(rvec, t), state.map.pos, filt, state.obs_desc, obs_dvalid,
-        feat.xy, feat.desc, feat.valid, no_kp_matched, no_pt_matched, **match_kw,
-    )
-    matches = torch.where(mm1.valid, mm1.point_idx, torch.full_like(mm1.point_idx, -1))
-    n_kf_matches = torch.sum(matches >= 0)
-
-    def optimise(rvec, t, matches):
-        if not cfg.optimize_pose:
-            return rvec, t
-        res = motion_ba(cam, rvec, t, feat.xy, state.map.pos[torch.clamp(matches, min=0)],
-                        matches >= 0, max_iters=cfg.motion_ba_iters, huber_delta=huber)
-        return res.rvec, res.t
-
-    rvec, t = optimise(rvec, t, matches)
-
-    # Match the whole map (keypoints and points not matched yet), optimise.
-    mm2 = match_map_to_frame(
-        cam, se3.pose_matrix(rvec, t), state.map.pos, state.map.valid, state.obs_desc,
-        obs_dvalid, feat.xy, feat.desc, feat.valid, matches >= 0,
-        _point_matched_mask(P, matches, feat.valid), **match_kw,
-    )
-    matches = torch.where(mm2.valid & (matches < 0), mm2.point_idx, matches)
-    rvec, t = optimise(rvec, t, matches)
-
-    # Keyframe decision + post-solve inliers (the loss signal).
-    n_total = torch.sum((matches >= 0) & feat.valid)
-    n_last = state.kfs.num_matches(last_slot)
-    is_kf = n_total < cfg.keyframe_match_ratio * n_last
-    uv_m, depth_m = project_with_depth(cam, se3.pose_matrix(rvec, t),
-                                       state.map.pos[torch.clamp(matches, min=0)])
-    reproj_m = torch.linalg.norm(uv_m - feat.xy, dim=-1)
-    n_inliers = torch.sum((matches >= 0) & feat.valid & (depth_m > 0.0)
-                          & (reproj_m < cfg.inlier_px))
-    if cfg.min_commit_inliers:
-        is_kf = is_kf | (n_inliers < cfg.min_commit_inliers)
-
-    state = state._replace(
-        last_rvec=rvec, last_t=t, prev_rvec=state.last_rvec, prev_t=state.last_t,
-        last_feat=feat, last_matches=matches, last_inliers=n_inliers,
-    )
+    tr = _track(state, feat, rvec, t, cam=cam, cfg=cfg, frontend=frontend)
+    state = tr.state
     # The frame's one host read.
-    is_kf_h, n_inl_h = torch.stack([is_kf.to(I64), n_inliers]).tolist()
+    is_kf_h, n_inl_h = torch.stack([tr.is_kf.to(I64), state.last_inliers]).tolist()
     if is_kf_h:
-        state = _commit_keyframe(state, img, feat, rvec, t, matches, cam=cam, cfg=cfg,
-                                 matcher=frontend.matcher, commit_no=commit_no)
+        state = _commit_keyframe(state, img, feat, state.last_rvec, state.last_t, tr.matches,
+                                 cam=cam, cfg=cfg, matcher=frontend.matcher, commit_no=commit_no)
     state = state._replace(frame_count=state.frame_count + 1)
 
     every = cfg.reproj_monitor_every
     if every == 1 or (every == 0 and is_kf_h):
         state = state._replace(reproj_px=keyframe_reprojection_error(cam, state.map, state.kfs))
     elif every > 1:
-        due = (state.frame_count % every == 0) | is_kf
+        due = (state.frame_count % every == 0) | tr.is_kf
         state = state._replace(reproj_px=torch.where(
             due, keyframe_reprojection_error(cam, state.map, state.kfs), state.reproj_px))
 
     info = StepInfo(
         rvec=state.last_rvec,
         t=state.last_t,
-        n_matches_kf=n_kf_matches,
-        n_matches_total=n_total,
-        n_last_kf_matches=n_last,
+        n_matches_kf=tr.n_kf_matches,
+        n_matches_total=tr.n_total,
+        n_last_kf_matches=tr.n_last,
         is_keyframe=bool(is_kf_h),
         n_points=state.map.num_points(),
         n_keyframes=state.num_kf,
         reproj_error_px=state.reproj_px,
         n_inliers=int(n_inl_h),
-        band_fallbacks=None if mm1.fell_back is None
-        else mm1.fell_back.to(I64) + mm2.fell_back.to(I64),
+        band_fallbacks=tr.band_fallbacks,
         essential_prediction=essential,
     )
     return state, info
+
+
+# ---------------------------------------------------------------------------
+# Lockstep step of S sequences
+# ---------------------------------------------------------------------------
+
+
+class MultiStepInfo(NamedTuple):
+    """Per-frame diagnostics of S sequences stepped in lockstep. The device
+    fields carry a leading S; `is_keyframe` and `n_inliers` are host lists
+    (the step's one read). Rows that were not active hold what the step
+    computed on their blank frame and are to be ignored."""
+
+    rvec: torch.Tensor
+    t: torch.Tensor
+    n_matches_kf: torch.Tensor
+    n_matches_total: torch.Tensor
+    n_last_kf_matches: torch.Tensor
+    is_keyframe: list
+    n_points: torch.Tensor
+    n_keyframes: torch.Tensor
+    reproj_error_px: torch.Tensor
+    n_inliers: list
+
+
+def check_multi_config(cfg: SlamConfig, frontend) -> None:
+    """Raise NotImplementedError for a configuration the lockstep step does
+    not take: it runs the classical frontend, the dense matcher and the
+    constant-velocity or constant-position prediction."""
+    refused = []
+    if not isinstance(frontend, ClassicalFrontend):
+        refused.append(f"the {type(frontend).__name__} frontend")
+    if cfg.matcher != "classical":
+        refused.append(f"matcher={cfg.matcher!r}")
+    if cfg.matching_backend == "banded":
+        refused.append("matching_backend='banded'")
+    if cfg.essential_matrix_estimation:
+        refused.append("essential_matrix_estimation=True")
+    if cfg.pose_prediction not in ("constant_velocity", "constant_position"):
+        refused.append(f"pose_prediction={cfg.pose_prediction!r}")
+    if refused:
+        raise NotImplementedError(
+            f"the multi-sequence step does not take {', '.join(refused)} yet "
+            "(ROADMAP.md Queue 1, slice 7b); run such sequences one by one through Slam")
+
+
+def _row_mask(S: int, rows: list, device) -> torch.Tensor:
+    """[S] bool on the device, True at `rows`, filled there (no host copy)."""
+    mask = torch.zeros((S,), dtype=torch.bool, device=device)
+    for i in rows:
+        mask[i] = True
+    return mask
+
+
+def slam_step_multi(
+    states: SlamState,
+    imgs: torch.Tensor,
+    active: list,
+    mask: torch.Tensor | None,
+    *,
+    cam: Camera,
+    cfg: SlamConfig,
+    frontend,
+    commit_nos: list | None = None,
+) -> tuple[SlamState, MultiStepInfo]:
+    """One tracking step of S sequences in lockstep (the JAX package's
+    `vmap` of its step, multi_seq.py:82-109): `states` stacked (leading S on
+    every leaf, slam.state.stack_states), `imgs` [S, H, W] uint8 or float32
+    on their device, `active` S host bools (False: the sequence has no frame
+    now, its row is left as it was).
+
+    The tracking is slam_step's own (_track over the stacked rows): K1 runs
+    once for the S frames and K2 and K3 twice, each one launch for all
+    rows. The [S] keyframe decisions and inlier counts come back in the
+    step's one host read; then each active row that commits runs
+    `_commit_keyframe` on its own (K4 once a committing row), written back
+    into the stacked state in place (slam.state.set_state_row). The JAX
+    package runs the commit for every row under `select`; the results are
+    the same, the commit work is not. `commit_nos` are the rows' commit
+    numbers (see _commit_keyframe). Returns (states, MultiStepInfo); the
+    input `states` is updated in place where rows commit."""
+    check_multi_config(cfg, frontend)
+    S = imgs.shape[0]
+    dev = imgs.device
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.to(torch.float32) * (1.0 / 255.0)
+    feat = frontend.extract(imgs, mask)
+    rvec, t = _motion_prediction(states, cfg)
+    tr = _track(states, feat, rvec, t, cam=cam, cfg=cfg, frontend=frontend)
+    tracked = tr.state
+    rows = [i for i in range(S) if active[i]]
+    act = None
+    if len(rows) < S:  # inactive rows keep their state (JAX's `active` cond)
+        act = _row_mask(S, rows, dev)
+        tracked = type(states)(*[
+            v if v is old else tree_map(
+                lambda a, b: torch.where(act.reshape(S, *[1] * (a.dim() - 1)), a, b), v, old)
+            for v, old in zip(tracked, states)])
+    # The lockstep frame's one host read.
+    is_kf_h, n_inl_h = torch.stack([tr.is_kf.to(I64), tr.state.last_inliers]).tolist()
+    states = tracked
+    commits = [i for i in rows if is_kf_h[i]]
+    for i in commits:
+        row = state_row(states, i)
+        f = Features(*[x[i] for x in feat])
+        row = _commit_keyframe(row, imgs[i], f, row.last_rvec, row.last_t, tr.matches[i],
+                               cam=cam, cfg=cfg, matcher=frontend.matcher,
+                               commit_no=None if commit_nos is None else commit_nos[i])
+        set_state_row(states, i, row)
+    states = states._replace(
+        frame_count=states.frame_count + (1 if act is None else act.to(I64)))
+
+    every = cfg.reproj_monitor_every
+    due = rows if every == 1 else commits if every == 0 else []
+    for i in due:
+        row = state_row(states, i)
+        row.reproj_px.copy_(keyframe_reprojection_error(cam, row.map, row.kfs))
+    if every > 1:
+        # Masked over the active rows: due every N frames and at commits.
+        fresh = torch.stack([keyframe_reprojection_error(cam, r.map, r.kfs)
+                             for r in (state_row(states, i) for i in range(S))])
+        upd = ((states.frame_count % every == 0) | tr.is_kf) & _row_mask(S, rows, dev)
+        states = states._replace(reproj_px=torch.where(upd, fresh, states.reproj_px))
+
+    info = MultiStepInfo(
+        rvec=states.last_rvec,
+        t=states.last_t,
+        n_matches_kf=tr.n_kf_matches,
+        n_matches_total=tr.n_total,
+        n_last_kf_matches=tr.n_last,
+        is_keyframe=[bool(is_kf_h[i]) and bool(active[i]) for i in range(S)],
+        n_points=torch.sum(states.map.valid, dim=-1),
+        n_keyframes=states.num_kf,
+        reproj_error_px=states.reproj_px,
+        n_inliers=[int(x) for x in n_inl_h],
+    )
+    return states, info
 
 
 # ---------------------------------------------------------------------------

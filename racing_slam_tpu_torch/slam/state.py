@@ -370,3 +370,45 @@ def keyframe_reprojection_error(cam: Camera, m: MapState, kfs: KeyframeStore) ->
     err = torch.linalg.norm(uv - kfs.kp_xy, dim=-1)
     n = torch.sum(ok)
     return torch.sum(torch.where(ok, err, torch.zeros_like(err))) / torch.clamp(n, min=1)
+
+
+# ---------------------------------------------------------------------------
+# Stacked states: S sequences with a leading axis on every leaf
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, *trees):
+    """`fn` over the leaves of NamedTuple trees of one structure."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        return type(first)(*[tree_map(fn, *subs) for subs in zip(*trees)])
+    return fn(*trees)
+
+
+def stack_states(states: list, device="cuda") -> SlamState:
+    """SlamStates of equal shapes -> one SlamState on `device` (the card
+    unless told otherwise) with a leading S axis on every leaf, in list
+    order (the JAX package stacks host rows the same way, multi_seq.py:263-274)."""
+    dev = resolve_device(device)
+    return tree_map(lambda *xs: torch.stack([x.to(dev) for x in xs]), *states)
+
+
+def state_row(states: SlamState, i: int) -> SlamState:
+    """Row i of a stacked state, as views of its leaves."""
+    return tree_map(lambda x: x[i], states)
+
+
+def set_state_row(states: SlamState, i: int, one: SlamState) -> SlamState:
+    """Write `one` into row i of a stacked state, in place (a commit
+    rewrites one sequence's rows and copying every leaf of all S would
+    cost more than the commit); leaves of `one` that are row i's own
+    views (what the row's update left as it was) are not copied. Returns
+    `states`."""
+
+    def put(x, v):
+        dst = x[i]
+        if (v.data_ptr(), v.stride(), v.shape) != (dst.data_ptr(), dst.stride(), dst.shape):
+            dst.copy_(v)
+
+    tree_map(put, states, one)
+    return states

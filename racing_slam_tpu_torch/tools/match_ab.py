@@ -126,8 +126,10 @@ def launchers(name: str, so: Path, csrc: Path, kernels: list) -> dict:
                       6, border, stream)
         calls["k1"] = call1
     if "k2" in kernels:
-        has_skip = "skip" in (csrc / KERNELS["k2"][0]).read_text()
-        k2 = fn("k2", [P] * (10 if has_skip else 9) + [I, I, I, I, F, P])
+        src2 = (csrc / KERNELS["k2"][0]).read_text()
+        has_skip = "skip" in src2
+        batched2 = "blockIdx.y" in src2  # the build takes S problems (one here)
+        k2 = fn("k2", [P] * (10 if has_skip else 9) + [I] * (5 if batched2 else 4) + [F, P])
 
         def call2(a, out, stream):
             (uv_p, gate, obs, ov, kuv, kd, kok), radius_px = a
@@ -135,16 +137,18 @@ def launchers(name: str, so: Path, csrc: Path, kernels: list) -> dict:
             ptrs = [t.data_ptr() for t in (uv_p, gate, obs, ov, kuv, kd, kok)]
             if has_skip:
                 ptrs.append(None)
-            return k2(*ptrs, out[0].data_ptr(), out[1].data_ptr(), Pn, O, D, kuv.shape[0],
-                      float(radius_px * radius_px), stream)
+            return k2(*ptrs, out[0].data_ptr(), out[1].data_ptr(), *([1] if batched2 else []),
+                      Pn, O, D, kuv.shape[0], float(radius_px * radius_px), stream)
         calls["k2"] = call2
     if "k3" in kernels:
-        k3 = fn("k3", [P, P, P, P, P, I, F, F, F, F, F, F, I, P])
+        batched3 = "blockIdx.x" in (csrc / KERNELS["k3"][0]).read_text()  # takes S solves
+        k3 = fn("k3", [P, P, P, P, P] + [I] * (2 if batched3 else 1) + [F] * 6 + [I, P])
 
         def call3(a, out, stream):
             (pose0, uv, xyz, valid), kw = a
             return k3(pose0.data_ptr(), uv.data_ptr(), xyz.data_ptr(), valid.data_ptr(),
-                      out.data_ptr(), uv.shape[0], kw["fx"], kw["cx"], kw["cy"],
+                      out.data_ptr(), *([1] if batched3 else []), uv.shape[0], kw["fx"], kw["cx"],
+                      kw["cy"],
                       kw["init_lambda"], kw["huber_delta"], kw["ftol"], kw["max_iters"], stream)
         calls["k3"] = call3
     if "k5" in kernels:

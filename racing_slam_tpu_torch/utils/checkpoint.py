@@ -10,6 +10,13 @@ no bf16). Fields absent from a file are backfilled from `SlamState.create`;
 a v1 file (positional "leaf_N", the state before the archive fields) is
 mapped onto the current names. `load_state` casts every leaf to the port's
 dtype (int64 indices, bf16 cache) on the device asked for.
+
+`save_state_sharded` / `load_state_sharded` keep a multi-sequence state
+(a leading S axis, this rank's rows of a MultiSlam) through
+`torch.distributed.checkpoint`, the counterpart of the JAX package's orbax
+backend (checkpoint.py:134-147): every rank writes its own rows, each
+under its global row number, into one checkpoint directory, and reads
+them back. It runs in one process too, with no process group.
 """
 
 from __future__ import annotations
@@ -93,3 +100,36 @@ def _unflatten(template, leaves):
     """`template`'s NamedTuple structure with its leaves taken in order."""
     return type(template)(*[_unflatten(v, leaves) if isinstance(v, tuple) else next(leaves)
                             for v in template])
+
+
+def _row_leaves(states: SlamState, rows: list) -> dict[str, torch.Tensor]:
+    """{"seq<g>/<dotted field>": leaf row} for the stacked state's rows,
+    `rows` their global numbers."""
+    return {f"seq{g}/{name}": x[i] for name, x in _named_leaves(states).items()
+            for i, g in enumerate(rows)}
+
+
+def save_state_sharded(path: str | Path, states: SlamState, rows: list | None = None) -> None:
+    """Write a stacked state's rows (global numbers `rows`, by default 0..S-1)
+    to the checkpoint directory `path` with torch.distributed.checkpoint;
+    under a process group every rank calls it with its own rows."""
+    import torch.distributed.checkpoint as dcp
+
+    S = states.num_kf.shape[0]
+    rows = list(range(S)) if rows is None else list(rows)
+    dcp.save(_row_leaves(states, rows), checkpoint_id=str(path))
+
+
+def load_state_sharded(path: str | Path, template: SlamState, rows: list | None = None
+                       ) -> SlamState:
+    """Read the rows `rows` (global numbers, by default 0..S-1) of a
+    checkpoint written by save_state_sharded into `template`, a stacked
+    state of the same shapes on the device wanted (MultiSlam's own, or
+    multi_seq.batched_state); `template` is filled in place and returned."""
+    import torch.distributed.checkpoint as dcp
+
+    S = template.num_kf.shape[0]
+    rows = list(range(S)) if rows is None else list(rows)
+    leaves = _row_leaves(template, rows)
+    dcp.load(leaves, checkpoint_id=str(path))
+    return template

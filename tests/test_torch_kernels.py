@@ -91,6 +91,35 @@ def test_k1_tiles_match_twin(cuda, shape, masked):
     assert (got[1] > 0).sum() > (0 if H < 30 else 20)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_k1_batched_equals_single_launches(cuda, masked):
+    """K1 over the multi path's [8, 480, 640] frames in one launch: one
+    count, each frame's maps equal to a launch on that frame alone to the
+    bit, and the stack within check_frontend's tolerances of the twin."""
+    rng = np.random.default_rng(8)
+    H, W = 480, 640
+    img = np.stack([_texture(rng, H, W) for _ in range(8)])
+    m = np.ones((H, W), np.float32)
+    m[-H // 5:, :] = 0
+    m[: H // 12, :] = 0
+    x = torch.from_numpy(img).to(cuda)
+    mask = torch.from_numpy(m).to(cuda) if masked else None
+    before = k1.launches
+    got = k1.corner_frontend_fused(x, mask)
+    assert k1.launches == before + 1
+    for i in range(8):
+        single = k1.corner_frontend_fused(x[i], mask)
+        assert all(torch.equal(g[i], t) for g, t in zip(got, single))
+    got = [t.cpu().numpy() for t in got]
+    want = [t.cpu().numpy() for t in k1.corner_frontend_fused_reference(x, mask)]
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-5)
+    flips = ((got[1] > 0) != (want[1] > 0)).reshape(8, -1).mean(axis=1)
+    assert flips.max() <= 1e-4, flips
+    both = (got[1] > 0) & (want[1] > 0)
+    np.testing.assert_allclose(got[1][both], want[1][both], atol=2e-5, rtol=1e-4)
+
+
 @pytest.mark.parametrize("O,D,K", [(3, 32, 100), (8, 128, 700), (5, 64, 257), (8, 256, 700),
                                    (4, 224, 300)])
 def test_k2_kernel_matches_twin(cuda, O, D, K):
@@ -642,3 +671,69 @@ def test_k3_fused_pass_cases_match_twin(cuda, case):
                     np.testing.assert_allclose(full[:3], at_n[:3], atol=1e-5)
                     np.testing.assert_allclose(full[3:6], at_n[3:6], atol=1e-4)
                     assert abs(full[6] - at_n[6]) <= bound * ulp, (fn.__name__, full, at_n)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("K", [2400, 5000])
+def test_k2_batched_equals_single_launches(cuda, D, K):
+    """K2 over S = 8 problems in one launch (the multi-sequence step's
+    shape: leading S on every operand, each problem its own frame and map
+    view; K = 5000 bins in two chunks): each row bit-equal to a launch of
+    that row alone, one count for the batched call, and each row held to
+    its twin by _k2_check's rules. Row 3 passes no point gate and row 5
+    no keypoint gate; a per-row `skip` blanks exactly the rows it sets."""
+    S, P = 8, 1500
+    rows = [_k2_inputs(np.random.default_rng(100 + s), P, K, 640, 480, D, 28.0) for s in range(S)]
+    rows[3][1][:] = False
+    rows[5][6][:] = False
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack([r[i] for r in rows]))).to(cuda)
+            for i in range(7)]
+    args[2] = args[2].to(torch.bfloat16)
+    before = k2.launches
+    bk, bd = k2.guided_match_stage1(*args, radius_px=28.0)
+    assert k2.launches == before + 1
+    rk, rd = k2.guided_match_stage1_reference(*args, radius_px=28.0)
+    for s in range(S):
+        sk, sd = k2.guided_match_stage1(*[a[s] for a in args], radius_px=28.0)
+        assert torch.equal(bk[s], sk) and torch.equal(bd[s], sd), f"row {s} differs from its launch"
+        r1k, r1d = k2.guided_match_stage1_reference(*[a[s] for a in args], radius_px=28.0)
+        assert torch.equal(rk[s], r1k) and torch.equal(rd[s], r1d)
+        _k2_check(cuda, rows[s], 28.0)
+    assert bool((bd[3] == 1e9).all()) and bool((bd[5] == 1e9).all())
+    skip = torch.tensor([s % 3 == 0 for s in range(S)], device=cuda)
+    sk, sd = k2.guided_match_stage1(*args, radius_px=28.0, skip=skip)
+    for s in range(S):
+        if s % 3 == 0:
+            assert bool((sk[s] == 0).all()) and bool((sd[s] == 1e9).all())
+        else:
+            assert torch.equal(sk[s], bk[s]) and torch.equal(sd[s], bd[s])
+
+
+@pytest.mark.parametrize("K", [2400, 12000])
+def test_k3_batched_equals_single_launches(cuda, K):
+    """K3 over S = 8 solves in one launch (rows in shared memory at K =
+    2400, streamed at 12000): each row bit-equal to a launch of that row
+    alone, one count for the batched call, and each row within the twin's
+    rules (rvec 1e-5, t 1e-4, cost 1 %, all 10 iterations with ftol = 0).
+    Row 2 has no valid row (its pose must come back unchanged) and row 6
+    starts at another pose."""
+    S = 8
+    probs = [_k3_problem(np.random.default_rng(200 + s), K) for s in range(S)]
+    probs[2][0][3][:] = False
+    probs[6][0][0] = probs[6][0][0] + torch.tensor([0.01, 0.0, -0.01, 0.05, 0.0, 0.02])
+    args = [torch.stack([p[0][i] for p in probs]).to(cuda) for i in range(4)]
+    kw = dict(probs[0][1], max_iters=10, ftol=0.0)
+    before = k3.launches
+    out = k3.motion_ba_lm(*args, **kw)
+    assert k3.launches == before + 1 and out.shape == (S, 8)
+    ref = k3.motion_ba_lm_reference(*args, **kw).cpu().numpy()
+    for s in range(S):
+        one = k3.motion_ba_lm(*[a[s] for a in args], **kw)
+        assert torch.equal(out[s], one), f"row {s} differs from its launch"
+    out = out.cpu().numpy()
+    np.testing.assert_array_equal(out[2, :6], args[0][2].cpu().numpy())
+    for s in set(range(S)) - {2}:
+        np.testing.assert_allclose(out[s, :3], ref[s, :3], atol=1e-5)
+        np.testing.assert_allclose(out[s, 3:6], ref[s, 3:6], atol=1e-4)
+        assert abs(out[s, 6] - ref[s, 6]) <= 0.01 * ref[s, 6] + 1e-10, (s, out[s, 6], ref[s, 6])
+        assert out[s, 7] == ref[s, 7] == 10

@@ -39,10 +39,12 @@ from racing_slam_tpu_torch.models import lightglue as tlg
 from racing_slam_tpu_torch.models import superpoint as tsp
 from racing_slam_tpu_torch.ops.camera import Camera
 from racing_slam_tpu_torch.ops.kernels.attention import flash_mha, flash_mha_reference
+from racing_slam_tpu_torch.parallel.mesh import make_mesh
+from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
 from racing_slam_tpu_torch.slam.config import SlamConfig
 from racing_slam_tpu_torch.slam.frontend import LightGlueMatcher
 from racing_slam_tpu_torch.slam.pipeline import Slam
-from racing_slam_tpu_torch.slam.state import SlamState
+from racing_slam_tpu_torch.slam.state import SlamState, stack_states
 from racing_slam_tpu_torch.utils.convert import (
     lightglue_params_from_numpy,
     state_from_numpy,
@@ -411,11 +413,13 @@ def test_mismatched_lightglue_weights_raise():
 
 
 @pytest.mark.parametrize("entry", ["superpoint_frontend", "superpoint_load", "lightglue_load",
-                                   "lightglue_matcher", "state_from_numpy", "slam_state_create"])
+                                   "lightglue_matcher", "state_from_numpy", "slam_state_create",
+                                   "multi_slam", "stack_states", "make_mesh"])
 def test_entry_points_default_to_the_card(entry):
-    """Without a card, the learned path's entry points, the state converter
-    and the state constructor raise unless given device="cpu"; with
-    device="cpu" they build."""
+    """Without a card, the learned path's entry points, the state converter,
+    the state constructor, the multi-sequence driver, the stacked state and
+    the device mesh raise unless given device="cpu"; with device="cpu" they
+    build (the mesh of a lone process is None)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     make = {
@@ -428,7 +432,15 @@ def test_entry_points_default_to_the_card(entry):
         "state_from_numpy": lambda **kw: state_from_numpy(jax.tree.map(
             np.asarray, jstate.SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2)), **kw),
         "slam_state_create": lambda **kw: SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2, **kw),
+        "multi_slam": lambda **kw: MultiSlam(_cam(), [ArraySource([])], **kw),
+        "stack_states": lambda **kw: stack_states(
+            [SlamState.create(F=2, P=8, O=2, K=4, D=8, A=2, device="cpu")] * 2, **kw),
+        "make_mesh": lambda **kw: make_mesh({"seq": 1, "lm": 1}, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
-    assert make(device="cpu") is not None
+    built = make(device="cpu")
+    if entry == "make_mesh":
+        assert built is None  # a lone process: no group, the single-process mesh
+    else:
+        assert built is not None

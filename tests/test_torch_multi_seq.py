@@ -1,0 +1,296 @@
+"""The port's multi-sequence tracking (parallel/multi_seq.py,
+slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
+(2 sequences, 10 frames, 320x240), on the CPU.
+
+(a) MultiSlam against the port's Slam run sequence by sequence with
+    seed=i: equal kfs.valid and num_kf, last_rvec / last_t within 1e-5,
+    and every leaf of the state equal to the bit (the batched twins equal
+    the per-row ones and se3's products sum in a fixed order, so this is
+    far tighter than the JAX package's 5e-2 between its vmapped and single
+    programs), under constant-position and constant-velocity prediction.
+(b) From the JAX package's MultiSlam.initialize() states on its
+    {"seq": 2, "lm": 4} CPU mesh, converted row by row: slam_step_multi
+    against JAX's multi_sequence_step frame by frame over 6 frames, rvec
+    1e-4 and t 1e-3 per row (tests/test_torch_pipeline.py's one-step
+    rule), equal num_kf.
+(c) Loss recovery (tests/test_multi_seq.py's scene cut): only the cut
+    sequence is archived and re-bootstrapped; a cut too close to the end of
+    its stream marks the sequence finished and leaves its row blank.
+(d) refine_map: each row equals full_ba + apply_refinement on that row.
+(e) The batched K2 and K3 twins at S=3 equal three single calls (atol 0),
+    and the batched frontend equals per-frame extraction.
+(f) A lockstep frame makes one host read and one K1, two K2 and two K3
+    calls, whatever S; inactive rows are left as they were.
+(g) Configurations outside the lockstep step raise NotImplementedError.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from racing_slam_tpu.ops.camera import Camera as JaxCamera
+from racing_slam_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from racing_slam_tpu.parallel.multi_seq import MultiSlam as JaxMultiSlam
+from racing_slam_tpu.parallel.multi_seq import multi_sequence_step as jax_multi_sequence_step
+from racing_slam_tpu.slam.config import SlamConfig as JaxSlamConfig
+from racing_slam_tpu.utils.video import ArraySource as JaxArraySource
+from racing_slam_tpu_torch.ops.ba import full_ba
+from racing_slam_tpu_torch.ops.kernels import frontend as k1
+from racing_slam_tpu_torch.ops.kernels import match as k2
+from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
+from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam, batched_state
+from racing_slam_tpu_torch.parallel.refine import apply_refinement, build_global_problem
+from racing_slam_tpu_torch.slam import pipeline as tp
+from racing_slam_tpu_torch.slam.frontend import ClassicalFrontend
+from racing_slam_tpu_torch.slam.state import stack_states, state_row, tree_map
+from racing_slam_tpu_torch.utils.checkpoint import (
+    _named_leaves,
+    load_state_sharded,
+    save_state_sharded,
+)
+from racing_slam_tpu_torch.utils.convert import state_from_numpy
+from racing_slam_tpu_torch.utils.synthetic import make_sequence
+from racing_slam_tpu_torch.utils.video import ArraySource
+from torch_multi_world import tiny_cfg, tiny_world
+
+torch.set_num_threads(2)
+
+
+def _u8(f):
+    return np.clip(f * 255.0, 0, 255).astype(np.uint8)
+
+
+def _equal_states(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_named_leaves(a).values(),
+                                                 _named_leaves(b).values()))
+
+
+@pytest.fixture(scope="module")
+def world():
+    return tiny_world()
+
+
+def _multi_against_per_sequence_slam(world, cfg, frames: int, batch: int):
+    cam, seqs = world
+    single = []
+    for i, s in enumerate(seqs):
+        slam = tp.Slam(cam, ArraySource(s.frames), cfg, seed=i, device="cpu")
+        assert slam.initialize()
+        slam.run_batched(max_frames=frames, batch=batch)
+        single.append(slam.state)
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
+    assert ms.initialize()
+    assert ms.run_batched(max_frames=frames, batch=batch) == frames
+    assert ms.host_syncs == ms.frames_stepped == frames
+    for got, want in zip(ms.states_per_sequence(), single):
+        assert torch.equal(got.kfs.valid, want.kfs.valid)
+        assert int(got.num_kf) == int(want.num_kf)
+        np.testing.assert_allclose(got.last_rvec.numpy(), want.last_rvec.numpy(), atol=1e-5)
+        np.testing.assert_allclose(got.last_t.numpy(), want.last_t.numpy(), atol=1e-5)
+        assert _equal_states(got, want)  # every leaf, to the bit
+
+
+def test_multi_slam_matches_per_sequence_slam(world):
+    _multi_against_per_sequence_slam(world, tiny_cfg(), frames=6, batch=3)
+
+
+def test_multi_slam_matches_per_sequence_slam_constant_velocity(world):
+    """(a) under the chip_smoke multi path's prediction, over every frame
+    the worlds have left after the bootstrap."""
+    _multi_against_per_sequence_slam(world, tiny_cfg(pose_prediction="constant_velocity"),
+                                     frames=8, batch=4)
+
+
+def test_step_matches_jax_multi_sequence_step(world):
+    cam, seqs = world
+    cfg = tiny_cfg(pose_prediction="constant_velocity")
+    jcfg = JaxSlamConfig(**dataclasses.asdict(cfg))
+    jcam = JaxCamera(*cam)
+    mesh = jax_make_mesh({"seq": 2, "lm": 4})
+    jms = JaxMultiSlam(jcam, [JaxArraySource(s.frames) for s in seqs], mesh, jcfg)
+    assert jms.initialize()
+    jstep = jax_multi_sequence_step(mesh, cam=jcam, cfg=jcfg, frontend=jms.frontend)
+    jstates = jms.states
+    rows = [jax.tree.map(lambda x, i=i: np.asarray(x)[i], jstates) for i in range(2)]
+    states = stack_states([state_from_numpy(r, device="cpu") for r in rows], device="cpu")
+    frontend = ClassicalFrontend(cell=cfg.cell, n_per_cell=cfg.n_per_cell,
+                                 max_distance=cfg.max_match_distance)
+    start = [int(r.frame_count) for r in rows]
+    key = jax.random.PRNGKey(0)
+    commits = 0
+    for j in range(6):
+        imgs = np.stack([_u8(seqs[i].frames[start[i] + j]) for i in range(2)])
+        keys = np.asarray(jax.random.split(key, 2)).reshape(2, 1, -1)
+        jstates, jinfo = jstep(jstates, imgs[:, None], keys, np.ones((2, 1), bool), None)
+        states, info = tp.slam_step_multi(states, torch.from_numpy(imgs), [True, True], None,
+                                          cam=cam, cfg=cfg, frontend=frontend)
+        commits += sum(info.is_keyframe)
+        np.testing.assert_allclose(states.last_rvec.numpy(), np.asarray(jstates.last_rvec),
+                                   atol=1e-4)
+        np.testing.assert_allclose(states.last_t.numpy(), np.asarray(jstates.last_t), atol=1e-3)
+        np.testing.assert_array_equal(states.num_kf.numpy(), np.asarray(jstates.num_kf))
+        np.testing.assert_array_equal(states.frame_count.numpy(), np.asarray(jstates.frame_count))
+    assert commits > 0  # the commit path ran on some row
+
+
+def test_loss_recovery_archives_only_the_cut_sequence():
+    """tests/test_multi_seq.py::test_multi_seq_loss_recovery's worlds: a
+    hard scene cut at frame 8 of sequence 0; and a cut 3 frames before the
+    end of a stream, too late to re-bootstrap."""
+    cam = tiny_world()[0]
+    step = np.array([0.10, 0.01, 0.16], np.float32)
+    a, b, c = [make_sequence(np.random.default_rng(s), n_frames=n, cam=cam, n_sprites=140,
+                             step_t=step) for s, n in ((5, 8), (99, 20), (7, 28))]
+    cfg = tiny_cfg(max_keyframes=8, map_capacity=1024, reinit_on_lost=True,
+                   lost_check_interval=1)
+    ms = MultiSlam(cam, [ArraySource(a.frames + b.frames), ArraySource(c.frames)], None, cfg,
+                   device="cpu")
+    assert ms.initialize()
+    ms.run_batched(batch=4)
+    assert len(ms.segments) >= 1 and all(seg["seq"] == 0 for seg in ms.segments)
+    assert ms.segments[0]["poses"].shape[0] >= 2
+    assert not ms.finished.any()
+    states = ms.states_per_sequence()
+    assert int(states[0].num_kf) >= 2 and int(states[1].num_kf) >= 2
+    assert int(states[0].frame_count) > len(a.frames)  # re-bootstrapped on the second world
+
+    late = MultiSlam(cam, [ArraySource(c.frames[:20] + b.frames[:3]), ArraySource(c.frames)],
+                     None, cfg, device="cpu")
+    assert late.initialize()
+    late.run_batched(batch=4)
+    assert late.finished.tolist() == [True, False]
+    assert [seg["seq"] for seg in late.segments] == [0]
+    states = late.states_per_sequence()
+    assert int(states[0].num_kf) == 0 and not bool(states[0].map.valid.any())
+    assert int(states[1].num_kf) >= 2
+
+
+def test_refine_map_equals_full_ba_per_row(world):
+    cam, seqs = world
+    cfg = tiny_cfg()
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, refine_every=1,
+                   refine_iters=4, device="cpu")
+    assert ms.initialize()
+    ms.run_batched(max_frames=3, batch=3)
+    assert len(ms.refine_costs) == 1
+    before = ms.states_per_sequence()
+    cost = ms.refine_map()
+    for i, row in enumerate(before):
+        res = full_ba(cam, build_global_problem(row), max_iters=4)
+        want = apply_refinement(row, res)
+        assert _equal_states(state_row(ms.states, i), want)
+        assert torch.equal(cost[i], res.cost)
+
+
+def test_batched_twins_equal_single_calls():
+    rng = np.random.default_rng(5)
+    S, P, O, D, K = 3, 200, 4, 128, 300
+    kp_uv = rng.uniform(0, 320, (S, K, 2)).astype(np.float32)
+    kp = rng.standard_normal((S, K, D)).astype(np.float32)
+    src = rng.integers(0, K, (S, P))
+    obs = np.stack([kp[s][src[s]] for s in range(S)])[:, :, None] + 0.2 * rng.standard_normal(
+        (S, P, O, D)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (
+        np.stack([kp_uv[s][src[s]] for s in range(S)]) + rng.uniform(-5, 5, (S, P, 2)).astype(
+            np.float32), rng.uniform(size=(S, P)) < 0.8, obs, rng.uniform(size=(S, P, O)) < 0.7,
+        kp_uv, kp, rng.uniform(size=(S, K)) < 0.9)]
+    args[2] = args[2].to(torch.bfloat16)
+    bk, bd = k2.guided_match_stage1(*args, radius_px=20.0)
+    skip = torch.tensor([True, False, True])
+    sk, sd = k2.guided_match_stage1(*args, radius_px=20.0, skip=skip)
+    for s in range(S):
+        rk, rd = k2.guided_match_stage1(*[a[s] for a in args], radius_px=20.0)
+        assert torch.equal(bk[s], rk) and torch.equal(bd[s], rd)
+        if skip[s]:
+            assert bool((sk[s] == 0).all()) and bool((sd[s] == k2.BIG).all())
+        else:
+            assert torch.equal(sk[s], rk) and torch.equal(sd[s], rd)
+
+    X = rng.uniform(-3, 3, (S, K, 3)).astype(np.float32)
+    X[..., 2] += 8.0
+    uv = (240.0 * X[..., :2] / X[..., 2:] + 160.0 + rng.normal(0, 0.5, (S, K, 2))).astype(
+        np.float32)
+    pose0 = rng.normal(0, 0.02, (S, 6)).astype(np.float32)
+    valid = rng.uniform(size=(S, K)) < 0.7
+    margs = [torch.from_numpy(a) for a in (pose0, uv, X, valid)]
+    kw = dict(fx=240.0, cx=160.0, cy=120.0, max_iters=5, huber_delta=0.01)
+    out = k3.motion_ba_lm(*margs, **kw)
+    assert out.shape == (S, 8)
+    for s in range(S):
+        assert torch.equal(out[s], k3.motion_ba_lm(*[a[s] for a in margs], **kw))
+
+
+def test_batched_frontend_equals_per_frame(world):
+    _, seqs = world
+    fe = ClassicalFrontend()
+    imgs = torch.from_numpy(np.stack([seqs[0].frames[0], seqs[1].frames[3]]).astype(np.float32))
+    feats = fe.extract(imgs)
+    for s in range(2):
+        one = fe.extract(imgs[s])
+        for a, b in zip(feats, one):
+            assert torch.equal(a[s], b)
+
+
+def test_lockstep_frame_launches_and_inactive_rows(world, monkeypatch):
+    cam, seqs = world
+    cfg = tiny_cfg()
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
+    assert ms.initialize()
+    calls = {"k1": 0, "k2": 0, "k3": 0}
+    # (kernel, module, twin, rank of its first operand in a batched call)
+    for name, mod, fn, rank in (("k1", k1, "corner_frontend_fused_reference", 3),
+                                ("k2", k2, "guided_match_stage1_reference", 3),
+                                ("k3", k3, "motion_ba_lm_reference", 2)):
+        orig = getattr(mod, fn)
+
+        def counted(*a, _orig=orig, _name=name, _rank=rank, **kw):
+            if a[0].dim() == _rank:  # the batched call, not its per-row twins
+                calls[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(mod, fn, counted)
+    before = tree_map(torch.clone, ms.states)
+    imgs = torch.from_numpy(np.stack([_u8(seqs[0].frames[4]), _u8(seqs[1].frames[4])]))
+    states, info = ms._step(ms.states, imgs, [True, False], None, [2, 2])
+    assert calls == {"k1": 1, "k2": 2, "k3": 2}, calls
+    assert _equal_states(state_row(states, 1), state_row(before, 1))
+    assert not info.is_keyframe[1]
+    assert int(states.frame_count[0]) == int(before.frame_count[0]) + 1
+
+
+@pytest.mark.parametrize("override", [dict(matcher="lightglue"), dict(matching_backend="banded"),
+                                      dict(pose_prediction="adaptive"),
+                                      dict(essential_matrix_estimation=True), "superpoint"])
+def test_configurations_outside_the_step_raise(world, override):
+    cam, seqs = world
+    kw = {}
+    if override == "superpoint":
+        from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
+
+        kw["frontend"] = superpoint.SuperPointFrontend(
+            superpoint.load_params(WEIGHTS_DIR / "superpoint.npz", device="cpu"), device="cpu")
+        cfg = tiny_cfg()
+    else:
+        cfg = tiny_cfg(**override)
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu", **kw)
+
+
+def test_sharded_checkpoint_round_trip(world, tmp_path):
+    cam, seqs = world
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, tiny_cfg(), device="cpu")
+    assert ms.initialize()
+    ms.run_batched(max_frames=3, batch=3)
+    save_state_sharded(tmp_path / "ckpt", ms.states)
+    one = state_row(ms.states, 0)
+    template = batched_state(2, F=4, Pcap=256, O=4, K=one.kfs.kp_xy.shape[1], D=128,
+                             A=one.arch_rvec.shape[0], device="cpu")
+    got = load_state_sharded(tmp_path / "ckpt", template)
+    assert _equal_states(got, ms.states)
+    only1 = load_state_sharded(tmp_path / "ckpt", tree_map(lambda x: x[:1].clone(), template),
+                               rows=[1])
+    assert _equal_states(state_row(only1, 0), state_row(ms.states, 1))
+
