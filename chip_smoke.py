@@ -61,7 +61,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      --quiet`, in a subprocess on the card: exit 0, its artifacts, the ATE
      of its trajectory.tum against the rendered world's ground truth
      <= 10 % of the trajectory length; then `--resume` from its state.npz
-     for 16 frames: exit 0 and "resumed from ... (kf=N)" with the saved N.
+     for 16 frames: exit 0 and "resumed from ... (kf=N)" with the saved N;
+  6. `train`: one superpoint_loss (120x160, n_corr=256, init_params) and
+     one lightglue_frontend_loss (dim 128, 2 layers, a 160x224 classical
+     pair extracted on the card) with their gradients on the card against
+     the same calls on the CPU (relative loss error <= 1e-6, each gradient
+     leaf within 3e-5 of its largest magnitude), and wrong routes on the
+     card (TF32 allowed; SuperPoint on bf16 operands) that must exceed a
+     limit; K1 on that pair's 160x224 image and K6 at [280, 4, 32] with
+     its valid masks against their twins, timed; then the training entry
+     point in process, `models.train.main(["--which", "both", "--steps",
+     "30", "--sp-steps", "30", "--out", "build/train_smoke"])`, with the
+     launch counters set to 0 just before: every printed loss finite, the
+     three weight files reload, the evaluations' precision and recall
+     printed, K1 and K6 launched; steps a second per network and the peak
+     device memory printed.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 
@@ -178,6 +192,19 @@ def _k1_compare(got, want, m: np.ndarray | None, what: str) -> float:
                float(np.abs(p[both] - p0[both]).max()))
 
 
+def _k1_times(k, img, mask) -> dict:
+    """K1's and its twin's device times on one frame, and the bound."""
+    ms = cuda_ms(lambda: k.corner_frontend_fused(img, mask))
+    plain = cuda_ms(lambda: k.corner_frontend_fused_reference(img, mask), rounds=1)
+    H, W = img.shape
+    # Per pixel: blur sigma 1.2 (2 x 9 taps) 36, Sobel 24, tensor products
+    # 3, 3x3 box sums 18, min eigenvalue ~10, gating 2, 15x15 NMS max 28,
+    # descriptor blur sigma 2 (2 x 13 taps) 52: ~173 float32 operations.
+    return dict(ms=ms, plain_ms=plain, library_ms=None,
+                **bound(nbytes(img, *([] if mask is None else [mask])) + 3 * nbytes(img),
+                        {"f32": 173 * H * W}))
+
+
 def check_frontend(frame: np.ndarray, dev) -> dict:
     """K1 on a rendered 640x480 bench frame, with and without the bench's
     okayama-shape mask (bottom fifth + top twelfth blocked).
@@ -201,14 +228,7 @@ def check_frontend(frame: np.ndarray, dev) -> dict:
         want = k.corner_frontend_fused_reference(img, msk)
         err = max(err, _k1_compare(got, want, None if msk is None else m,
                                    f"K1 frontend mask={msk is not None}"))
-    ms = cuda_ms(lambda: k.corner_frontend_fused(img, mask))
-    plain = cuda_ms(lambda: k.corner_frontend_fused_reference(img, mask), rounds=1)
-    # Per pixel: blur sigma 1.2 (2 x 9 taps) 36, Sobel 24, tensor products
-    # 3, 3x3 box sums 18, min eigenvalue ~10, gating 2, 15x15 NMS max 28,
-    # descriptor blur sigma 2 (2 x 13 taps) 52: ~173 float32 operations.
-    return dict(name="corner_frontend_fused", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=None, **bound(nbytes(img, mask) + 3 * nbytes(img),
-                                         {"f32": 173 * H * W}),
+    return dict(name="corner_frontend_fused", module=k, max_abs_err=err, **_k1_times(k, img, mask),
                 source="racing_slam_tpu_torch/csrc/frontend_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/frontend_kernel.py:167")
 
@@ -840,6 +860,45 @@ def check_structure_ba(dev) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/structure_ba_kernel.py:336")
 
 
+def _k6_compare(k, q, kk, v, mask, chunks, name: str) -> float:
+    """K6 against its twin under check_attention's rule (max abs error <=
+    5 % of the twin's output RMS); returns the error."""
+    import torch
+
+    got = k.flash_mha(q, kk, v, mask, chunks=chunks)
+    want = k.flash_mha_reference(q, kk, v, mask)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    tol = 0.05 * float(want.pow(2).mean().sqrt())
+    assert torch.isfinite(got).all() and e <= tol, f"K6 {name}: max abs err {e} > {tol}"
+    Kq, Kk, H = q.shape[0], kk.shape[0], q.shape[1]
+    n_chunks = chunks or k.default_chunks(Kq, Kk, H)
+    log(f"K6 flash attention {name} [{Kq}, {Kk}], {n_chunks} key chunks: max abs err "
+        f"{e:.3e} (limit {tol:.3e})")
+    return e
+
+
+def _k6_times(k, q, kk, v, mask) -> dict:
+    """K6's, its twin's and torch's scaled_dot_product_attention's device
+    times on one problem (the library call in bf16 with an additive -1e9
+    float mask; the port never calls it), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    ms = cuda_ms(lambda: k.flash_mha(q, kk, v, mask))
+    plain = cuda_ms(lambda: k.flash_mha_reference(q, kk, v, mask), rounds=1)
+    qb, kb, vb = [x.to(torch.bfloat16).permute(1, 0, 2)[None] for x in (q, kk, v)]
+    add = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[None, None, None, :]
+    lib = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add)[0].permute(1, 0, 2)
+    log(f"K6 [{q.shape[0]}, {kk.shape[0]}] vs scaled_dot_product_attention (bf16): max abs diff "
+        f"{float((lib.float() - k.flash_mha(q, kk, v, mask)).abs().max()):.3e}")
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add))
+    (Kq, H, dh), Kk = q.shape, kk.shape[0]
+    return dict(ms=ms, plain_ms=plain, library_ms=library,
+                **bound(nbytes(q, kk, v, mask) + nbytes(q),  # inputs + the f32 output
+                        {"bf16": 4 * Kq * Kk * H * dh, "exp": Kq * Kk * H}))
+
+
 def check_attention(dev) -> dict:
     """K6 at LightGlue's main-path shape: q, k, v [2400, 4, 32], about 80 %
     of the keys valid; then every key masked (uniform attention), a
@@ -863,7 +922,6 @@ def check_attention(dev) -> dict:
     torch's scaled_dot_product_attention on the same inputs in bf16 with an
     additive -1e9 float mask (the port never calls it)."""
     import torch
-    import torch.nn.functional as F
 
     from racing_slam_tpu_torch.ops.kernels import attention as k
 
@@ -878,32 +936,10 @@ def check_attention(dev) -> dict:
             ("one chunk all padding", 2400, 2400, 0.8, 20)):
         q, kk, v = [t(rng.normal(size=(n, H, dh)).astype(np.float32)) for n in (Kq, Kk, Kk)]
         mask = t(rng.random(Kk) < valid)
-        got = k.flash_mha(q, kk, v, mask, chunks=chunks)
-        want = k.flash_mha_reference(q, kk, v, mask)
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        tol = 0.05 * float(want.pow(2).mean().sqrt())
-        assert torch.isfinite(got).all() and e <= tol, f"K6 {name}: max abs err {e} > {tol}"
-        n_chunks = chunks or k.default_chunks(Kq, Kk, H)
-        log(f"K6 flash attention {name} [{Kq}, {Kk}], {n_chunks} key chunks: max abs err "
-            f"{e:.3e} (limit {tol:.3e})")
-        err = max(err, e)
+        err = max(err, _k6_compare(k, q, kk, v, mask, chunks, name))
         if name == "80 % valid":
             args = (q, kk, v, mask)
-    q, kk, v, mask = args
-    ms = cuda_ms(lambda: k.flash_mha(*args))
-    plain = cuda_ms(lambda: k.flash_mha_reference(*args), rounds=1)
-    qb, kb, vb = [x.to(torch.bfloat16).permute(1, 0, 2)[None] for x in (q, kk, v)]
-    add = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[None, None, None, :]
-    lib = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add)[0].permute(1, 0, 2)
-    log(f"K6 vs scaled_dot_product_attention (bf16): max abs diff "
-        f"{float((lib.float() - k.flash_mha(*args)).abs().max()):.3e}")
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add))
-    Kq, Kk = q.shape[0], kk.shape[0]
-    return dict(name="flash_mha", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=library,
-                **bound(nbytes(q, kk, v, mask) + nbytes(q),  # inputs + the f32 output
-                        {"bf16": 4 * Kq * Kk * H * dh, "exp": Kq * Kk * H}),
+    return dict(name="flash_mha", module=k, max_abs_err=err, **_k6_times(k, *args),
                 source="racing_slam_tpu_torch/csrc/attention_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/attention_kernel.py:88")
 
@@ -997,8 +1033,10 @@ def check_superpoint(frame: np.ndarray, dev) -> dict:
     img = torch.from_numpy(frame.astype(np.float32) / 255.0)
     got = fe.extract(img.to(dev))
     want = cpu.extract(img)
-    heat = superpoint.heads(fe.params, superpoint.backbone(fe.params, img.to(dev)))[0].cpu()
-    heat0 = superpoint.heads(cpu.params, superpoint.backbone(cpu.params, img))[0]
+    bf16 = torch.bfloat16  # the inference route, as extract runs it
+    heat = superpoint.heads(fe.params, superpoint.backbone(fe.params, img.to(dev), bf16),
+                            bf16)[0].cpu()
+    heat0 = superpoint.heads(cpu.params, superpoint.backbone(cpu.params, img, bf16), bf16)[0]
     herr = float((heat - heat0).abs().max())
     same = float(((got.xy.cpu() - want.xy).abs() < 0.05).all(-1).float().mean())
     log(f"SuperPoint card vs CPU: keypoints at the same position {same:.4f}, "
@@ -1014,7 +1052,8 @@ def check_superpoint(frame: np.ndarray, dev) -> dict:
             hw //= 4
     flops += 2 * hw * (9 * cin * 256 * 2 + 256 * 65 + 256 * 256)
     x = img.to(dev)
-    conv_ms = cuda_ms(lambda: superpoint.heads(fe.params, superpoint.backbone(fe.params, x)))
+    conv_ms = cuda_ms(lambda: superpoint.heads(fe.params, superpoint.backbone(fe.params, x, bf16),
+                                               bf16))
     extract_ms = cuda_ms(lambda: fe.extract(x))
     res = dict(gflop=flops / 1e9, conv_ms=conv_ms, extract_ms=extract_ms,
                bound_ms_bf16=1e3 * flops / PEAK_OPS_S["bf16"], bound_ms_tf32=1e3 * flops / 495e12)
@@ -1541,6 +1580,201 @@ def run_cli() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training
+# ---------------------------------------------------------------------------
+
+TRAIN_OUT = "build/train_smoke"
+TRAIN_STEPS = 30
+TRAIN_HW = (160, 224)  # the LightGlue trainers' and evaluators' pairs
+# Card against CPU, float32 on both in another summation order (cuDNN and
+# cuBLAS without TF32): the loss to TRAIN_LOSS_RTOL relative, each gradient
+# leaf to TRAIN_GRAD_TOL of that leaf's largest magnitude. Each check also
+# runs a wrong route on the card (TF32 allowed; SuperPoint on bf16
+# operands), which must read above a limit. On an H100 the sound routes
+# read at most 1.9e-7 (loss) and 3.2e-6 (gradients), the controls at
+# least 1.6e-6 and 4.5e-4: TF32 moves SuperPoint's loss by 1.9e-5 and
+# bf16 by 9.4e-5, both inside a 1e-4 loss limit.
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_TOL = 3e-5
+
+
+def _loss_and_grads(loss_fn, params, args: list, d, **kw) -> tuple:
+    """loss_fn(params, *args, **kw) and its gradients on device `d`, from
+    CPU parameters and inputs."""
+    from racing_slam_tpu_torch.models import train
+    from racing_slam_tpu_torch.slam.state import tree_map
+    from racing_slam_tpu_torch.utils.convert import tree_leaves
+
+    p = train._trainable(tree_map(lambda t: t.to(d), params))
+    loss = loss_fn(p, *[a.to(d) for a in args], **kw)
+    loss.backward()
+    return loss.item(), [t.grad.cpu() for t in tree_leaves(p)]
+
+
+def _errors(run: tuple, ref: tuple) -> dict:
+    """The loss's relative error and the largest gradient error of any
+    leaf, relative to that leaf's largest magnitude in `ref`."""
+    (loss, g), (loss0, g0) = run, ref
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g, g0, strict=True))
+    return dict(loss=loss, loss_rel_err=abs(loss - loss0) / abs(loss0), grad_rel_err=grad_err)
+
+
+def _with_tf32(fn):
+    """fn() with TF32 allowed in cuBLAS and cuDNN, then the package's
+    full-float32 settings again."""
+    import torch
+
+    from racing_slam_tpu_torch.device import use_full_fp32
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        use_full_fp32()
+
+
+def _card_vs_cpu(name: str, loss_fn, params, args: list, dev, controls: dict) -> dict:
+    """loss_fn's loss and gradients on the card against the CPU's, and each
+    control (a wrong route on the card: {name: fn(run) -> (loss, grads)},
+    with run(**kw) the card's call) against the same CPU reading. The sound
+    reading must lie within TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL; each
+    control must exceed one of them, or the limits could not tell it from
+    the sound route."""
+    cpu = _loss_and_grads(loss_fn, params, args, "cpu")
+    run = lambda **kw: _loss_and_grads(loss_fn, params, args, dev, **kw)  # noqa: E731
+    res = dict(_errors(run(), cpu), loss_cpu=cpu[0])
+    res["controls"] = {c: _errors(fn(run), cpu) for c, fn in controls.items()}
+    log(f"train card vs CPU, {name}: " + json.dumps(res))
+    assert res["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"{name}: loss {res}"
+    assert res["grad_rel_err"] <= TRAIN_GRAD_TOL, f"{name}: gradients {res}"
+    for c, r in res["controls"].items():
+        assert r["loss_rel_err"] > TRAIN_LOSS_RTOL or r["grad_rel_err"] > TRAIN_GRAD_TOL, \
+            f"{name}: the control {c} passes the limits {r}"
+    return res
+
+
+def check_train_shapes(img, masks: list) -> dict:
+    """K1 on one [160, 224] training image and K6 at the evaluations' shape
+    ([K, 4, 32] with K the frontend's 280 keypoints, random normal q, k,
+    v, each of the pair's valid masks on the keys; default chunks, the last
+    one partial) against their twins under check_frontend's and
+    check_attention's rules, with their times and bounds at these shapes:
+    the kernel table's `train` entries of the K1 and K6 rows."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import attention as k6
+    from racing_slam_tpu_torch.ops.kernels import frontend as k1
+
+    H, W = img.shape
+    got = k1.corner_frontend_fused(img, None)
+    want = k1.corner_frontend_fused_reference(img, None)
+    out = {"corner_frontend_fused": dict(
+        shape=f"{H}x{W}", max_abs_err=_k1_compare(got, want, None, f"K1 train {H}x{W}"),
+        **_k1_times(k1, img, None))}
+    rng = np.random.default_rng(9)
+    K = masks[0].shape[0]
+    err = 0.0
+    for i, mask in enumerate(masks):
+        q, kk, v = [torch.from_numpy(rng.normal(size=(K, 4, 32)).astype(np.float32))
+                    .to(img.device) for _ in range(3)]
+        err = max(err, _k6_compare(k6, q, kk, v, mask, None, f"train keys of image {i}"))
+    out["flash_mha"] = dict(shape=f"[{K}, 4, 32]", max_abs_err=err,
+                            **_k6_times(k6, q, kk, v, masks[-1]))
+    return out
+
+
+def check_train(dev) -> dict:
+    """The training losses and gradients on the card against the CPU, at the
+    trainers' shapes (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, with their
+    controls). SuperPoint: init_params(seed 0), one example of
+    train_superpoint's draw at 120x160 with n_corr=256 (the detector labels
+    on both devices compared cell by cell); controls TF32 allowed, and
+    compute_dtype=torch.bfloat16. LightGlue: dim 128, 2 layers, on one
+    160x224 pair of the classical frontend (K1 on the card), its features
+    copied to the CPU; control TF32 allowed. Then check_train_shapes on
+    that pair's first image and valid masks."""
+    import types
+
+    import torch
+
+    from racing_slam_tpu_torch.models import lightglue, superpoint, train
+    from racing_slam_tpu_torch.slam.frontend import ClassicalFrontend
+
+    rng = np.random.default_rng(0)
+    batch = train._superpoint_batch(rng, train._ImagePool(rng, 120, 160, size=4), 120, 160, 256,
+                                    "cpu")
+    label_diff = sum(int((train._detector_labels(img.to(dev)).cpu()
+                          != train._detector_labels(img)).sum()) for img in batch[:2])
+    sp = _card_vs_cpu("superpoint_loss", train.superpoint_loss,
+                      superpoint.init_params(torch.Generator().manual_seed(0), device="cpu"),
+                      list(batch), dev,
+                      {"tf32": _with_tf32, "bf16": lambda run: run(compute_dtype=torch.bfloat16)})
+    h, w = TRAIN_HW
+    img = train._train_image(rng, h, w)
+    f0, f1, gt_idx, gt_valid = train._homography_pair(
+        rng, ClassicalFrontend(), h, w, dev, pool=types.SimpleNamespace(sample=lambda: img))
+    feats = [x.cpu() for x in (f0.desc, f0.xy, f0.valid, f1.desc, f1.xy, f1.valid)]
+    lg = _card_vs_cpu("lightglue_frontend_loss",
+                      lambda p, *a: train.lightglue_frontend_loss(p, *a, (float(w), float(h))),
+                      lightglue.init_params(torch.Generator().manual_seed(0), 128, 128, 2,
+                                            device="cpu"),
+                      [*feats, torch.from_numpy(gt_idx), torch.from_numpy(gt_valid)], dev,
+                      {"tf32": _with_tf32})
+    res = dict(superpoint=dict(sp, label_cells_differing=label_diff),
+               lightglue_frontend=dict(lg, keypoints=int(f0.valid.sum()),
+                                       gt_matches=int(gt_valid.sum())),
+               shapes=check_train_shapes(torch.from_numpy(img).to(dev), [f0.valid, f1.valid]))
+    log("train checks: " + json.dumps(res))
+    return res
+
+
+def run_train(dev, kernels: list) -> dict:
+    """The training entry point in process on the card (`--which both`):
+    SuperPoint, LightGlue on the classical frontend (K1) and on SuperPoint,
+    each evaluated by lightglue.match (K6), with the launch counters set to
+    0 just before and read just after; the losses, rates and evaluations
+    are what `train.main` returns."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from racing_slam_tpu_torch.models import lightglue, superpoint, train
+    from racing_slam_tpu_torch.utils.convert import tree_leaves
+
+    out = Path(__file__).resolve().parent / TRAIN_OUT
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--which", "both", "--steps", str(TRAIN_STEPS), "--sp-steps", str(TRAIN_STEPS),
+            "--out", str(out)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kern in kernels:
+        kern["module"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    report = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {kern["name"]: kern["module"].launches for kern in kernels}
+    for name in ("superpoint", "lightglue", "lightglue_superpoint"):
+        mod = superpoint if name == "superpoint" else lightglue
+        params = mod.load_params(out / f"{name}.npz", device=dev)
+        assert all(torch.isfinite(t).all() for t in tree_leaves(params)), name
+    res = dict(wall_s=wall, steps=TRAIN_STEPS, report=report,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=launches)
+    log("train: " + json.dumps(res))
+    assert sorted(report) == ["lightglue", "lightglue_superpoint", "superpoint"], report
+    for name, r in report.items():
+        assert len(r["losses"]) >= 2 and np.isfinite(r["losses"]).all(), (name, r)
+        assert r["steps_per_s"] > 0, (name, r)
+        if name != "superpoint":
+            assert {"precision", "recall"} <= set(r["eval"]["lg"]), (name, r)
+    for name in ("corner_frontend_fused", "flash_mha"):
+        assert launches[name] > 0, f"train: {name} not launched"
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1619,6 +1853,8 @@ def main() -> int:
     multi = run_multi(dev, kernels, cam, multi_worlds, args.profile)
     run_dist(dev, cam, multi_worlds)
     run_cli()
+    train_checks = check_train(dev)
+    trained = run_train(dev, kernels)
     for seed in seeds[1:]:
         world_s = worlds(seed)
         for path in PATHS:
@@ -1637,11 +1873,16 @@ def main() -> int:
         else:
             by_path = {path: r["launches"][kern["name"]] for path, r in runs.items()}
             by_path["multi"] = multi["init_launches" if base in in_batched else "launches"][base]
+            if kern["name"] in train_checks["shapes"]:
+                by_path["train"] = trained["launches"][kern["name"]]
         row = dict(name=kern["name"], route="cuda", source=kern["source"],
                    replaces=kern["replaces"], launches=sum(by_path.values()),
                    launches_by_path=by_path)
         row.update({key: kern[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")})
+        # The train phase's launches sit beside the numbers measured at its shapes.
+        if "train" in by_path:
+            row["train"] = train_checks["shapes"][kern["name"]]
         row.update({key: kern[key] for key in ("d256", "ms_an_iteration", "prune", "singles_ms")
                     if key in kern})
         table.append(row)

@@ -7,7 +7,11 @@ assignment with per-token matchability scores the pairs, and `match` takes
 mutual argmaxes above a threshold.
 
 Every attention site goes through kernel K6 (`ops.kernels.attention`): the
-CUDA kernel for CUDA tensors, its plain twin for CPU tensors. Weights keep
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors. K6 has no
+backward and raises on operands that require grad; the training losses
+(`models.train`) pass `attn_backend="xla_flash"`, the JAX package's
+training route (its "auto"): float32 attention in plain PyTorch, which
+autograd differentiates. Weights keep
 the JAX package's [in, out] orientation (``x @ W``) and its pytree layout
 (`LightGlueParams`, `LayerParams`), so a JAX parameter tree converts leaf by
 leaf (`utils.convert.lightglue_params_from_numpy`).
@@ -23,11 +27,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels.attention import flash_mha
+from ..device import resolve_device
+from ..ops.kernels.attention import NEG, flash_mha
 from ..ops.matching import FrameMatches
 from . import WEIGHTS_DIR
 
 HEADS = 4
+ATTN_BACKENDS = ("kernel", "xla_flash")
 
 
 class LayerParams(NamedTuple):
@@ -47,6 +53,30 @@ class LightGlueParams(NamedTuple):
     match_proj_w: torch.Tensor  # [D, D]
     matchability_w: torch.Tensor  # [D, 1]
     matchability_b: torch.Tensor  # [1]
+
+
+def init_params(generator: torch.Generator, in_dim: int = 256, dim: int = 256,
+                n_layers: int = 4, device: str | torch.device = "cuda") -> LightGlueParams:
+    """Random weights, as the JAX package's `init_params` (lightglue.py:56):
+    each [a, b] matrix normal / sqrt(a), biases zero, in the same tree,
+    drawn from `generator` (a CPU generator: the same seed gives the same
+    weights on every device) in the JAX function's order, the layers first."""
+    dev = resolve_device(device)
+
+    def lin(a, b):
+        return (torch.randn((a, b), generator=generator) / a ** 0.5).to(dev)
+
+    def zeros(n):
+        return torch.zeros((n,), device=dev)
+
+    layers = tuple(
+        LayerParams(self_qkv_w=lin(dim, 3 * dim), self_out_w=lin(dim, dim),
+                    self_mlp_w=lin(2 * dim, dim), self_mlp_b=zeros(dim),
+                    cross_qk_w=lin(dim, dim), cross_v_w=lin(dim, dim),
+                    cross_mlp_w=lin(2 * dim, dim), cross_mlp_b=zeros(dim))
+        for _ in range(n_layers))
+    return LightGlueParams(in_proj_w=lin(in_dim, dim), layers=layers, match_proj_w=lin(dim, dim),
+                           matchability_w=lin(dim, 1), matchability_b=zeros(1))
 
 
 def _rotary_2d(xy: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,9 +101,19 @@ def _ln(x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-6)
 
 
-def _mha(q, k, v, mask_q, mask_k):
-    """Multi-head attention (kernel K6), masked query rows zeroed."""
-    msg = flash_mha(q, k, v, mask_k)
+def _attention_f32(q, k, v, mask_k):
+    """softmax(q k^T / sqrt(dh)) v per head in float32, masked keys at the
+    logit -1e9: the function of the JAX package's `_flash_mha_xla`, whose
+    online softmax over key tiles only saves memory, as one dense softmax."""
+    s = torch.einsum("qhd,khd->hqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    s = torch.where(mask_k[None, None, :], s, NEG)
+    return torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1), v)
+
+
+def _mha(q, k, v, mask_q, mask_k, backend: str = "kernel"):
+    """Multi-head attention, masked query rows zeroed: kernel K6, or the
+    differentiable float32 route for `backend="xla_flash"`."""
+    msg = flash_mha(q, k, v, mask_k) if backend == "kernel" else _attention_f32(q, k, v, mask_k)
     return torch.where(mask_q[:, None, None], msg, 0.0)
 
 
@@ -91,7 +131,7 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1):
+def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1, backend: str = "kernel"):
     """Rotary self-attention in each image, then cross-attention both ways;
     each updates tokens by t + GELU([t_norm | LN(msg)] @ W + b)."""
 
@@ -100,7 +140,7 @@ def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1):
         q, k, v = torch.chunk(tn @ p.self_qkv_w, 3, dim=-1)
         q = _apply_rope(_split_heads(q), cos, sin)
         k = _apply_rope(_split_heads(k), cos, sin)
-        msg = _merge_heads(_mha(q, k, _split_heads(v), m, m)) @ p.self_out_w
+        msg = _merge_heads(_mha(q, k, _split_heads(v), m, m, backend)) @ p.self_out_w
         return t + _gelu(torch.cat([tn, _ln(msg)], dim=-1) @ p.self_mlp_w + p.self_mlp_b)
 
     t0 = self_attn(t0, *rope0, m0)
@@ -111,7 +151,7 @@ def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1):
         qa = _split_heads(tan @ p.cross_qk_w)
         kb = _split_heads(tbn @ p.cross_qk_w)
         vb = _split_heads(tbn @ p.cross_v_w)
-        msg = _merge_heads(_mha(qa, kb, vb, ma, mb))
+        msg = _merge_heads(_mha(qa, kb, vb, ma, mb, backend))
         return ta + _gelu(torch.cat([tan, _ln(msg)], dim=-1) @ p.cross_mlp_w + p.cross_mlp_b)
 
     return cross(t0, t1, m0, m1), cross(t1, t0, m1, m0)
@@ -132,8 +172,14 @@ def assignment_scores(
     xy1: torch.Tensor,
     valid1: torch.Tensor,
     image_size: tuple[float, float],
+    attn_backend: str = "kernel",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Forward pass -> (scores [K0, K1], matchability0 [K0], matchability1 [K1])."""
+    """Forward pass -> (scores [K0, K1], matchability0 [K0], matchability1 [K1]).
+
+    attn_backend: "kernel" (K6, inference: `match` and the pipeline) or
+    "xla_flash" (float32 plain PyTorch with gradients: training)."""
+    if attn_backend not in ATTN_BACKENDS:
+        raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}")
     t0 = desc0 @ params.in_proj_w
     t1 = desc1 @ params.in_proj_w
     if params.layers:
@@ -141,7 +187,7 @@ def assignment_scores(
         rope0 = _rotary_2d(_normalise(xy0, image_size), dh)
         rope1 = _rotary_2d(_normalise(xy1, image_size), dh)
         for p in params.layers:
-            t0, t1 = _layer(p, t0, t1, rope0, rope1, valid0, valid1)
+            t0, t1 = _layer(p, t0, t1, rope0, rope1, valid0, valid1, attn_backend)
         t0, t1 = _ln(t0), _ln(t1)
     z0 = t0 @ params.match_proj_w
     z1 = t1 @ params.match_proj_w
@@ -197,3 +243,15 @@ def load_params(path, device: str | torch.device = "cuda") -> LightGlueParams:
         leaves = [data[f"leaf_{i}"] for i in range(int(data["n_leaves"]))]
         dims = int(data["in_dim"]), int(data["dim"]), int(data["n_layers"])
     return lightglue_params_from_numpy(leaves, *dims, device=device)
+
+
+def save_params(path, params: LightGlueParams) -> None:
+    """Write the JAX package's .npz format (lightglue.py:326): n_leaves,
+    in_dim, dim, n_layers and `leaf_i` in pytree order, float32; its
+    `load_params` reads the file."""
+    from ..utils.convert import lightglue_params_to_numpy
+
+    leaves = lightglue_params_to_numpy(params)
+    in_dim, dim = params.in_proj_w.shape
+    np.savez(path, n_leaves=len(leaves), in_dim=in_dim, dim=dim, n_layers=len(params.layers),
+             **{f"leaf_{i}": a for i, a in enumerate(leaves)})

@@ -6,17 +6,30 @@ between stages) to 1/8 resolution; a detector head giving a 65-way (8x8
 cell + dustbin) distribution per cell and a descriptor head giving 256-d
 descriptors per cell, sampled bilinearly at the keypoints.
 
-Precision contract (the JAX package's inference path, superpoint.py:82-100
-and :267-279): conv operands in bf16, sums in float32, biases in float32;
-keypoint selection and normalisation in float32. Every convolution runs in
-float32 on bf16-rounded operands (cuDNN on the card, TF32 allowed: it holds
-bf16 values exactly), so each layer's output is float32 and rounds to bf16
+Precision contract. `compute_dtype` is the JAX package's argument of the
+same name (superpoint.py:82-100). None, the default and the training route,
+is float32 throughout: cuDNN with TF32 off, as the package sets it at
+import (`device.use_full_fp32`). `torch.bfloat16` is the inference route
+(`SuperPointFrontend.extract`, superpoint.py:267-279): conv operands in
+bf16, sums in float32, biases in float32; keypoint selection and
+normalisation in float32. Every convolution then runs in float32 on
+bf16-rounded operands (cuDNN on the card, TF32 allowed: it holds bf16
+values exactly), so each layer's output is float32 and rounds to bf16
 once, at the next layer's input, as in JAX. (A bf16 convolution would
 round its output to bf16 before the bias as well, and that double
 rounding moves keypoints by a pixel against JAX far more often.) The
-heads' final 1x1 convolutions are float32 matmuls of bf16-rounded
-operands. They are plain convolutions, computed outside any Pallas kernel
-in the JAX package too.
+heads' final 1x1 convolutions are float32 matmuls of (on the inference
+route) bf16-rounded operands. They are plain convolutions, computed
+outside any Pallas kernel in the JAX package too. The rounding is a cast,
+which autograd passes straight through, so only the float32 route is fit
+for gradients.
+
+Gradients differ from JAX's in two rare cases. The 2x2 max pool
+(`F.max_pool2d`; JAX's reshape-max, superpoint.py:103, has the same
+forward) sends a window's gradient to one of its tied maxima, where JAX
+splits it among them; after the ReLU a tie carries gradient only when it
+is positive. And a descriptor of norm 0 has a gradient of 0 here, NaN in
+JAX.
 
 Public functions keep the JAX layouts: images [H, W], features [Hc, Wc, C],
 heatmaps [H, W], descriptor maps [Hc, Wc, D]. Parameters keep the JAX
@@ -37,6 +50,7 @@ from ..ops.image import bilinear_sample
 from ..slam.state import Features
 
 ENCODER_CHANNELS = (64, 64, 128, 128)
+DESC_DIM = 256
 CELL = 8  # detection cell (fixed by the 65-way head)
 
 
@@ -49,58 +63,86 @@ class SuperPointParams(NamedTuple):
     desc_b: tuple
 
 
-def _bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 tensor holding the bf16 rounding of `t`."""
-    return t.to(torch.bfloat16).to(torch.float32)
+def init_params(generator: torch.Generator, desc_dim: int = DESC_DIM,
+                device: str | torch.device = "cuda") -> SuperPointParams:
+    """Random weights, as the JAX package's `init_params` (superpoint.py:47):
+    He-normal kernels, std sqrt(2 / (k * k * cin)), and zero biases, in the
+    same tree and leaf order, drawn from `generator` (a CPU generator: the
+    same seed gives the same weights on every device) in the order the
+    layers run: the 8 encoder convs, then the detector and descriptor
+    heads' 3x3 and 1x1 convs. Kernels are OIHW."""
+    dev = resolve_device(device)
+
+    def conv(cin, cout, k=3):
+        w = torch.randn((cout, cin, k, k), generator=generator) * (2.0 / (k * k * cin)) ** 0.5
+        return w.to(dev), torch.zeros((cout,), device=dev)
+
+    encoder, cin = [], 1
+    for cout in ENCODER_CHANNELS:
+        for _ in range(2):
+            encoder.append(conv(cin, cout))
+            cin = cout
+    det = [conv(cin, 256), conv(256, 65, k=1)]
+    desc = [conv(cin, 256), conv(256, desc_dim, k=1)]
+    return SuperPointParams(
+        conv_w=tuple(w for w, _ in encoder), conv_b=tuple(b for _, b in encoder),
+        det_w=tuple(w for w, _ in det), det_b=tuple(b for _, b in det),
+        desc_w=tuple(w for w, _ in desc), desc_b=tuple(b for _, b in desc))
 
 
-def _conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 conv of [1, C, H, W]: bf16-rounded operands, float32 sums
-    and bias, float32 output. A product of two bf16 values is exact in
-    TF32 as in float32, so cuDNN may take its TF32 tensor-core path here
-    (the package turns TF32 off everywhere else). The cuDNN switches are
-    process-wide: these are the port's only cuDNN convolutions, and its
-    frame-prefetch thread runs none."""
+def _round(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """float32 tensor holding the `compute_dtype` rounding of `t` (None: `t`)."""
+    return t if compute_dtype is None else t.to(compute_dtype).to(torch.float32)
+
+
+def _conv3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """SAME 3x3 conv of [1, C, H, W] with float32 sums and bias and float32
+    output, on `compute_dtype`-rounded operands. A product of two bf16
+    values is exact in TF32 as in float32, so on the bf16 route cuDNN may
+    take its TF32 tensor-core path; the float32 route keeps TF32 off. The
+    cuDNN switches are process-wide: these are the port's only cuDNN
+    convolutions, and its frame-prefetch thread runs none."""
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=True):
-        return F.conv2d(_bf16_round(x), _bf16_round(w), b, padding=1)
+                     deterministic=cudnn.deterministic, allow_tf32=compute_dtype is not None):
+        return F.conv2d(_round(x, compute_dtype), _round(w, compute_dtype), b, padding=1)
 
 
-def _conv1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _conv1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """1x1 conv of [1, C, Hc, Wc] -> [Hc, Wc, Cout] as a float32 matmul of
-    bf16-rounded operands (float32 output, as the JAX conv)."""
-    xt = _bf16_round(x[0]).permute(1, 2, 0)  # [Hc, Wc, C]
-    return xt @ _bf16_round(w[:, :, 0, 0]).T + b
+    `compute_dtype`-rounded operands (float32 output, as the JAX conv)."""
+    xt = _round(x[0], compute_dtype).permute(1, 2, 0)  # [Hc, Wc, C]
+    return xt @ _round(w[:, :, 0, 0], compute_dtype).T + b
 
 
-def backbone(params: SuperPointParams, img: torch.Tensor) -> torch.Tensor:
+def backbone(params: SuperPointParams, img: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """[H, W] grayscale -> [H/8, W/8, 128] features."""
     x = img[None, None].to(torch.float32)
     i = 0
     for stage in range(len(ENCODER_CHANNELS)):
         for _ in range(2):
-            x = torch.relu(_conv3(x, params.conv_w[i], params.conv_b[i]))
+            x = torch.relu(_conv3(x, params.conv_w[i], params.conv_b[i], compute_dtype))
             i += 1
         if stage < len(ENCODER_CHANNELS) - 1:
             x = F.max_pool2d(x, 2)  # floors odd sizes, as the JAX reshape pool
     return x[0].permute(1, 2, 0)
 
 
-def heads_logits(params: SuperPointParams, feat: torch.Tensor):
+def heads_logits(params: SuperPointParams, feat: torch.Tensor, compute_dtype=None):
     """[Hc, Wc, C] features -> (detector logits [Hc, Wc, 65], unit-norm dense
-    descriptors [Hc, Wc, D]), both float32."""
+    descriptors [Hc, Wc, D]), both float32. The logits are the training
+    surface (a cell-wise cross-entropy against corner labels)."""
     x = feat.permute(2, 0, 1)[None]
-    d = torch.relu(_conv3(x, params.det_w[0], params.det_b[0]))
-    logits = _conv1(d, params.det_w[1], params.det_b[1])
-    e = torch.relu(_conv3(x, params.desc_w[0], params.desc_b[0]))
-    desc = _conv1(e, params.desc_w[1], params.desc_b[1])
+    d = torch.relu(_conv3(x, params.det_w[0], params.det_b[0], compute_dtype))
+    logits = _conv1(d, params.det_w[1], params.det_b[1], compute_dtype)
+    e = torch.relu(_conv3(x, params.desc_w[0], params.desc_b[0], compute_dtype))
+    desc = _conv1(e, params.desc_w[1], params.desc_b[1], compute_dtype)
     return logits, desc / (torch.linalg.norm(desc, dim=-1, keepdim=True) + 1e-8)
 
 
-def heads(params: SuperPointParams, feat: torch.Tensor):
+def heads(params: SuperPointParams, feat: torch.Tensor, compute_dtype=None):
     """-> (heatmap [H, W], dense descriptors [Hc, Wc, D])."""
-    logits, desc = heads_logits(params, feat)
+    logits, desc = heads_logits(params, feat, compute_dtype)
     prob = torch.softmax(logits, dim=-1)[..., :64]  # drop the dustbin
     heat = F.pixel_shuffle(prob.permute(2, 0, 1)[None], CELL)[0, 0]
     return heat, desc
@@ -167,23 +209,28 @@ def sample_descriptors(desc_map: torch.Tensor, xy: torch.Tensor) -> torch.Tensor
 class SuperPointFrontend:
     """Learned frontend behind the same interface as ClassicalFrontend.
 
-    `params` (from `load_params`) are placed on `device`, the card unless
-    the caller asks for the CPU; the convolution kernels are kept in bf16
-    (their inference rounding) so that a frame converts each only once.
-    max_distance is the reference deep path's L2 gate (0.7)."""
+    `params` (from `load_params`; None draws random weights from
+    `init_params` with `seed`, as the JAX frontend does) are placed on
+    `device`, the card unless the caller asks for the CPU; the convolution
+    kernels are kept in bf16 (their inference rounding) so that a frame
+    converts each only once. max_distance is the reference deep path's L2
+    gate (0.7)."""
 
     def __init__(
         self,
-        params: SuperPointParams,
+        params: SuperPointParams | None = None,
         cell: int = 16,
         n_per_cell: int = 2,
         threshold: float = 0.0005,
         max_distance: float = 0.7,
+        seed: int = 0,
         device: str | torch.device = "cuda",
     ):
         from ..slam.frontend import ClassicalMatcher
 
         self.device = resolve_device(device)
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(seed), device=self.device)
         self.params = SuperPointParams(*[
             tuple(w.to(self.device, torch.bfloat16) if w.dim() == 4 else w.to(self.device)
                   for w in group)
@@ -203,7 +250,8 @@ class SuperPointFrontend:
 
     def extract(self, img: torch.Tensor, mask: torch.Tensor | None = None) -> Features:
         """Features of one float32 [H, W] frame; `mask` [H, W], nonzero = allowed."""
-        heat, desc_map = heads(self.params, backbone(self.params, img))
+        bf16 = torch.bfloat16
+        heat, desc_map = heads(self.params, backbone(self.params, img, bf16), bf16)
         xy, score, valid = select_keypoints(heat, mask, self.cell, self.n_per_cell,
                                             self.threshold)
         return Features(xy=xy, desc=sample_descriptors(desc_map, xy), valid=valid, score=score)
@@ -216,3 +264,11 @@ def load_params(path, device: str | torch.device = "cuda") -> SuperPointParams:
     with np.load(path) as data:
         leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
     return superpoint_params_from_numpy(leaves, device=device)
+
+
+def save_params(path, params: SuperPointParams) -> None:
+    """Write the JAX package's .npz format (superpoint.py:282): `leaf_i` in
+    pytree order, float32, kernels HWIO; its `load_params` reads the file."""
+    from ..utils.convert import superpoint_params_to_numpy
+
+    np.savez(path, **{f"leaf_{i}": a for i, a in enumerate(superpoint_params_to_numpy(params))})

@@ -122,7 +122,13 @@ def flash_mha(
 ) -> torch.Tensor:
     """[Kq, H, dh] f32 attention output; query rows are not masked.
     `chunks`: the kernel's split of the keys (default `default_chunks`);
-    the twin on the CPU runs unsplit."""
+    the twin on the CPU runs unsplit. The kernel has no backward (nor has
+    the TPU kernel), and the twin's bf16 casts would pass gradients
+    straight through, so an operand that requires grad raises, on either
+    device: a loss takes `models.lightglue`'s float32 route."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_mha has no backward: an operand requires grad; "
+                           "differentiate LightGlue with attn_backend='xla_flash'")
     if _build.device_kind(q, k, v, mask_k) == "cpu":
         return flash_mha_reference(q, k, v, mask_k)
     Kq, H, dh = q.shape

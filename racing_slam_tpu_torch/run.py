@@ -52,10 +52,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--map-capacity", type=int, default=4096)
     p.add_argument("--frontend", choices=["classical", "learned"], default="classical",
                    help="classical = Shi-Tomasi + patch descriptors (default); "
-                        "learned = SuperPoint on trained weights")
+                        "learned = SuperPoint")
     p.add_argument("--weights", type=Path, default=None,
-                   help="superpoint .npz weights for --frontend learned "
-                        "(default: racing_slam_tpu/weights/superpoint.npz)")
+                   help="superpoint .npz weights for --frontend learned (default: "
+                        "racing_slam_tpu/weights/superpoint.npz, else random weights)")
     p.add_argument("--matcher", choices=["classical", "lightglue"], default="classical",
                    help="frame<->frame matcher: mutual-1NN or LightGlue")
     p.add_argument("--lightglue-weights", type=Path, default=None,
@@ -143,13 +143,19 @@ def main(argv=None) -> int:
         from .models import WEIGHTS_DIR
         from .models.superpoint import SuperPointFrontend, load_params
 
-        wpath = args.weights or WEIGHTS_DIR / "superpoint.npz"
-        if not Path(wpath).exists():
+        wpath = args.weights
+        if wpath is None:
+            packaged = WEIGHTS_DIR / "superpoint.npz"
+            wpath = packaged if packaged.exists() else None
+        elif not Path(wpath).exists():
             print(f"error: --frontend learned needs trained weights; {wpath} does not exist",
                   file=sys.stderr)
             return 2
-        frontend = SuperPointFrontend(params=load_params(wpath, device=args.device),
-                                      cell=cfg.cell, n_per_cell=cfg.n_per_cell,
+        params = load_params(wpath, device=args.device) if wpath else None
+        if params is None:
+            print("note: --frontend learned with RANDOM weights "
+                  "(train via python -m racing_slam_tpu_torch.models.train)")
+        frontend = SuperPointFrontend(params=params, cell=cfg.cell, n_per_cell=cfg.n_per_cell,
                                       device=args.device)
     slam = Slam(cam, source, cfg, static_mask=mask, seed=args.seed, frontend=frontend,
                 device=args.device)

@@ -378,10 +378,12 @@ def keyframe_reprojection_error(cam: Camera, m: MapState, kfs: KeyframeStore) ->
 
 
 def tree_map(fn, *trees):
-    """`fn` over the leaves of NamedTuple trees of one structure."""
+    """`fn` over the leaves of trees of one structure (NamedTuples and plain
+    tuples, as the parameter trees hold)."""
     first = trees[0]
     if isinstance(first, tuple):
-        return type(first)(*[tree_map(fn, *subs) for subs in zip(*trees)])
+        subs = [tree_map(fn, *sub) for sub in zip(*trees)]
+        return type(first)(*subs) if hasattr(first, "_fields") else tuple(subs)
     return fn(*trees)
 
 

@@ -11,12 +11,15 @@ descriptor projection, is rebuilt bit-identically by ops/descriptors.py.
 
 `superpoint_params_from_numpy` and `lightglue_params_from_numpy` build the
 learned path's parameters from the leaves of the JAX package's parameter
-pytrees (`jax.tree_util.tree_leaves` order, as numpy arrays); the .npz
-loaders of `models.superpoint` and `models.lightglue` are thin wrappers.
+pytrees (`jax.tree_util.tree_leaves` order, as numpy arrays);
+`superpoint_params_to_numpy` and `lightglue_params_to_numpy` go back. The
+.npz loaders and savers of `models.superpoint` and `models.lightglue` are
+thin wrappers.
 """
 
 from __future__ import annotations
 
+from collections.abc import Iterator
 from typing import NamedTuple
 
 import numpy as np
@@ -75,6 +78,20 @@ def state_to_numpy(state: SlamState) -> SlamState:
     return _to(state)
 
 
+def tree_leaves(tree) -> Iterator[torch.Tensor]:
+    """The tensors of a parameter tree (NamedTuples and tuples of tensors)
+    in the JAX pytree's leaf order."""
+    for x in tree:
+        if isinstance(x, tuple):
+            yield from tree_leaves(x)
+        else:
+            yield x
+
+
+def _param_to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
 def superpoint_params_from_numpy(leaves, device="cuda") -> SuperPointParams:
     """The 24 leaves of a JAX SuperPointParams (conv_w x8, conv_b x8, det_w x2,
     det_b x2, desc_w x2, desc_b x2) -> the port's parameters on `device`;
@@ -108,3 +125,17 @@ def lightglue_params_from_numpy(leaves, in_dim: int, dim: int, n_layers: int,
     layers = tuple(LayerParams(*x[1 + 8 * i: 9 + 8 * i]) for i in range(n_layers))
     return LightGlueParams(in_proj_w=x[0], layers=layers, match_proj_w=x[-3],
                            matchability_w=x[-2], matchability_b=x[-1])
+
+
+def superpoint_params_to_numpy(params: SuperPointParams) -> list[np.ndarray]:
+    """The port's SuperPoint parameters -> the 24 float32 leaves of the JAX
+    pytree, kernels from OIHW to HWIO (the inverse of
+    `superpoint_params_from_numpy`)."""
+    return [_param_to_numpy(t.permute(2, 3, 1, 0) if t.dim() == 4 else t)
+            for t in tree_leaves(params)]
+
+
+def lightglue_params_to_numpy(params: LightGlueParams) -> list[np.ndarray]:
+    """The port's LightGlue parameters -> the float32 leaves of the JAX
+    pytree (the inverse of `lightglue_params_from_numpy`)."""
+    return [_param_to_numpy(t) for t in tree_leaves(params)]

@@ -227,6 +227,20 @@ def test_cli_learned_needs_weights(tmp_path, capsys):
     assert rc == 2 and "needs trained weights" in capsys.readouterr().err
 
 
+def test_cli_learned_without_a_weights_file_runs_on_random_weights(tmp_path, monkeypatch, capsys):
+    """As the JAX command line: no --weights and no committed file -> random
+    SuperPoint weights (init_params), with a note."""
+    from racing_slam_tpu_torch import models
+    from racing_slam_tpu_torch.run import main
+
+    monkeypatch.setattr(models, "WEIGHTS_DIR", tmp_path)
+    rc = main([*CLI_ARGS, "--synthetic-frames", "4", "--max-frames", "2", "--device", "cpu",
+               "--frontend", "learned"])
+    out = capsys.readouterr().out
+    assert "note: --frontend learned with RANDOM weights" in out
+    assert rc == 0, out[-2000:]
+
+
 # ---------------------------------------------------------------------------
 # The sequence YAML and encoded video (tests/test_video_e2e.py on the port)
 # ---------------------------------------------------------------------------

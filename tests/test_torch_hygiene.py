@@ -3,6 +3,8 @@
 - Importing the port (every module of the slice) never imports jax, nor
   the JAX package.
 - A wrapper sends CPU tensors to its plain twin and never to the kernel.
+- K6 has no backward: its wrapper raises on operands that require grad,
+  on either device; LightGlue's float32 route differentiates instead.
 - For CUDA tensors a wrapper calls its launcher, never the twin; when the
   build fails or the launch returns a CUDA error it raises. There is no
   fallback either way. Here, without a card, "CUDA" tensors are meta
@@ -42,7 +44,8 @@ SLICE_MODULES = [
     "racing_slam_tpu_torch.ops.kernels.motion_ba",
     "racing_slam_tpu_torch.ops.kernels.structure_ba", "racing_slam_tpu_torch.ops.kernels.attention",
     "racing_slam_tpu_torch.models", "racing_slam_tpu_torch.models.lightglue",
-    "racing_slam_tpu_torch.models.superpoint", "racing_slam_tpu_torch.slam.config",
+    "racing_slam_tpu_torch.models.superpoint", "racing_slam_tpu_torch.models.train",
+    "racing_slam_tpu_torch.slam.config",
     "racing_slam_tpu_torch.slam.state", "racing_slam_tpu_torch.slam.frontend",
     "racing_slam_tpu_torch.slam.pipeline", "racing_slam_tpu_torch.utils.synthetic",
     "racing_slam_tpu_torch.utils.convert", "racing_slam_tpu_torch.utils.metrics",
@@ -213,3 +216,49 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / _build.LIB_NAME).exists()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_k6_raises_on_operands_that_require_grad(monkeypatch, device):
+    def no_lib():
+        raise AssertionError("no kernel may be built for operands that require grad")
+
+    monkeypatch.setattr(_build, "lib", no_lib)
+    monkeypatch.setattr(k6, "flash_mha_reference", lambda *a, **k: no_lib())
+    if device == "cuda":
+        monkeypatch.setattr(_build, "device_kind", lambda *ts: "cuda")
+        make = _meta
+    else:
+        make = lambda shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype)  # noqa: E731
+    q, k, v, mask = (make((64, 4, 32)), make((96, 4, 32)), make((96, 4, 32)),
+                     make((96,), torch.bool))
+    before = k6.launches
+    for i in range(3):
+        ops = [q, k, v]
+        ops[i] = ops[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            k6.flash_mha(*ops, mask)
+    assert k6.launches == before
+
+
+def test_lightglue_float32_route_backpropagates():
+    """assignment_scores differentiates on attn_backend="xla_flash"; on the
+    default route (K6) a loss that needs gradients raises."""
+    from racing_slam_tpu_torch.models import lightglue
+
+    gen = torch.Generator().manual_seed(0)
+    params = lightglue.init_params(gen, 32, 32, 1, device="cpu")
+    params = params._replace(in_proj_w=params.in_proj_w.clone().requires_grad_(True))
+    d0, d1 = torch.randn((24, 32), generator=gen), torch.randn((20, 32), generator=gen)
+    xy0, xy1 = torch.rand((24, 2), generator=gen) * 64, torch.rand((20, 2), generator=gen) * 64
+    v0, v1 = torch.rand(24, generator=gen) < 0.9, torch.rand(20, generator=gen) < 0.9
+    scores, m0, _ = lightglue.assignment_scores(params, d0, xy0, v0, d1, xy1, v1, (64.0, 64.0),
+                                                attn_backend="xla_flash")
+    (scores.sum() + m0.sum()).backward()
+    g = params.in_proj_w.grad
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        lightglue.assignment_scores(params, d0, xy0, v0, d1, xy1, v1, (64.0, 64.0))
+    with pytest.raises(ValueError, match="attn_backend"):
+        lightglue.assignment_scores(params, d0, xy0, v0, d1, xy1, v1, (64.0, 64.0),
+                                    attn_backend="pallas")

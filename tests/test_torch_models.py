@@ -258,7 +258,8 @@ def test_superpoint_maps_match_jax(superpoint):
     jparams, ours, img = superpoint
     feat = jsp.backbone(jparams, jnp.asarray(img), compute_dtype=jnp.bfloat16)
     jheat, jdesc = jsp.heads(jparams, feat, compute_dtype=jnp.bfloat16)
-    heat, desc = tsp.heads(ours, tsp.backbone(ours, _t(img)))
+    bf16 = torch.bfloat16
+    heat, desc = tsp.heads(ours, tsp.backbone(ours, _t(img), bf16), bf16)
     assert heat.shape == (240, 320) and desc.shape == (30, 40, 256)
     herr = np.abs(heat.numpy() - np.asarray(jheat))
     assert herr.max() < 1.5e-2 and np.mean(herr < 1e-3) >= 0.995, (herr.max(), np.mean(herr < 1e-3))
