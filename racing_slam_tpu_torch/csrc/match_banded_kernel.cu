@@ -18,6 +18,13 @@
 // (launched beside this kernel with the same flag) does the work instead,
 // so the choice costs no host read.
 //
+// Batched over sequences: S independent problems of the same sizes (the
+// lockstep tracking step of S sequences) are one launch, blockIdx.y =
+// sequence, each problem with its own n_act[s] and starts. The resident
+// blocks are split over the S problems (at least one each). A row's answer
+// is computed by one warp over that row's units whatever the grid, so each
+// row equals a launch of that problem alone to the bit.
+//
 // What bounds it on an H100: the bytes of the active rows (a point's 8
 // bf16 observations are 2 KB at D=128), read once; a full scan of the band
 // would test n_act * tile_p * band * tile_k positions (8 M at the scale
@@ -84,6 +91,21 @@ banded_match_kernel(const float* __restrict__ uv_p, const uint8_t* __restrict__ 
                     const int* __restrict__ n_act, int* __restrict__ best_k,
                     float* __restrict__ best_d, int P, int G, int O, int D, int K, int tile_p,
                     int tile_k, int band, float radius_sq) {
+  {  // this block's problem (sequence)
+    const size_t s = blockIdx.y;
+    uv_p += 2 * (size_t)P * s;
+    gate_p += (size_t)P * s;
+    obs_desc += (size_t)P * O * D * s;
+    obs_valid += (size_t)P * O * s;
+    p_sel += (size_t)G * s;
+    kp_uv += 2 * (size_t)K * s;
+    kp_desc += (size_t)K * D * s;
+    kp_ok += (size_t)K * s;
+    starts += (size_t)(G / tile_p) * s;
+    n_act += s;
+    best_k += (size_t)G * s;
+    best_d += (size_t)G * s;
+  }
   __shared__ float2 s_kp[MAX_BAND];  // (u, key) of the band's keypoints
   __shared__ int s_list[WARPS][64];  // up to 7 held + 32 new candidates
 
@@ -166,11 +188,12 @@ template <int NCH>
 cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p,
                    const __nv_bfloat16* obs_desc, const uint8_t* obs_valid, const int* p_sel,
                    const float* kp_uv, const float* kp_desc, const uint8_t* kp_ok,
-                   const int* starts, const int* n_act, int* best_k, float* best_d, int P,
-                   int G, int O, int D, int K, int tile_p, int tile_k, int band,
+                   const int* starts, const int* n_act, int* best_k, float* best_d, int S,
+                   int P, int G, int O, int D, int K, int tile_p, int tile_k, int band,
                    float radius_sq) {
   // As many blocks as are resident at once (the active tiles are known on
-  // the device only): they stride over the rows. Asked once per instance.
+  // the device only), split over the S problems: they stride over the
+  // rows. Asked once per instance.
   const auto kernel = banded_match_kernel<NCH>;
   struct Resident {
     cudaError_t err;
@@ -185,8 +208,8 @@ cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p
     return Resident{e, sms * per_sm};
   }();
   if (resident.err != cudaSuccess) return resident.err;
-  const int blocks = max(1, min(G / WARPS, resident.blocks));
-  kernel<<<blocks, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv,
+  const dim3 grid(max(1, min(G / WARPS, resident.blocks / S)), S);
+  kernel<<<grid, THREADS, 0, stream>>>(uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv,
                                          kp_desc, kp_ok, starts, n_act, best_k, best_d, P, G, O,
                                          D, K, tile_p, tile_k, band, radius_sq);
   return cudaGetLastError();
@@ -194,21 +217,24 @@ cudaError_t launch(cudaStream_t stream, const float* uv_p, const uint8_t* gate_p
 
 }  // namespace
 
+// S problems: uv_p [S, P, 2], gate_p [S, P], obs_desc [S, P, O, D],
+// obs_valid [S, P, O], p_sel [S, G], kp_uv [S, K, 2], kp_desc [S, K, D],
+// kp_ok [S, K], starts [S, G / tile_p], n_act [S], best_k and best_d [S, G].
 SLAM_API int slam_guided_match_banded(const float* uv_p, const uint8_t* gate_p,
                                       const __nv_bfloat16* obs_desc, const uint8_t* obs_valid,
                                       const int* p_sel, const float* kp_uv, const float* kp_desc,
                                       const uint8_t* kp_ok, const int* starts, const int* n_act,
-                                      int* best_k, float* best_d, int P, int G, int O, int D,
-                                      int K, int tile_p, int tile_k, int band, float radius_sq,
-                                      cudaStream_t stream) {
+                                      int* best_k, float* best_d, int S, int P, int G, int O,
+                                      int D, int K, int tile_p, int tile_k, int band,
+                                      float radius_sq, cudaStream_t stream) {
   const bool aligned = reinterpret_cast<uintptr_t>(kp_desc) % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(kp_uv) % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(obs_desc) % 4 == 0;  // word loads
-  if (P < 1 || G < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 ||
+  if (S < 1 || S > 65535 || P < 1 || G < 1 || O < 1 || O > MAX_O || D < 32 || D % 32 != 0 || D > 256 ||
       tile_p < WARPS || tile_p % WARPS != 0 || G % tile_p != 0 || tile_k < 1 || band < 1 ||
       band * tile_k > MAX_BAND || K % tile_k != 0 || K < band * tile_k || !aligned)
     return (int)cudaErrorInvalidValue;
   return (int)(D <= 128 ? launch<8> : launch<16>)(
       stream, uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts, n_act,
-      best_k, best_d, P, G, O, D, K, tile_p, tile_k, band, radius_sq);
+      best_k, best_d, S, P, G, O, D, K, tile_p, tile_k, band, radius_sq);
 }

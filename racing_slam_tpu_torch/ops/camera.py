@@ -69,5 +69,5 @@ def normalize_pixels(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
 
 
 def projection_matrix(cam: Camera, pose: torch.Tensor) -> torch.Tensor:
-    """3x4 projection matrix K [R|t]."""
-    return torch.einsum("ij,...jk->...ik", cam.K(pose), pose[..., :3, :4])
+    """3x4 projection matrix K [R|t] (summed in a fixed order, as se3's products)."""
+    return se3.matmul_in_order(cam.K(pose), pose[..., :3, :4])

@@ -108,7 +108,11 @@ def extract_descriptors_cells(
     edge-padded blurred image by static strided views; the per-keypoint work
     is two separable bilinear-interpolation matmuls. `blurred` skips the
     internal sigma-2 blur when the caller already has it (kernel K1 makes it).
-    Returns [B, K, D] (or [K, D]).
+    Returns [B, K, D] (or [K, D]). The windows and the interpolation
+    weights are cut for the whole batch by elementwise ops; the matrix
+    products and the normalisation run frame by frame, at one frame's
+    shapes, so that a frame gets the bits it gets alone (on the card, a
+    library product's rounding follows its batch shape).
     """
     single = img.dim() == 2
     if single:
@@ -164,14 +168,12 @@ def extract_descriptors_cells(
         s0i = s0.long()[..., None]
         return (cols == s0i) * (1.0 - f) + (cols == s0i + 1) * f
 
-    outs = []
-    for g in range(n_per_cell):
-        gx = xy[:, g * C : (g + 1) * C, 0]
-        gy = xy[:, g * C : (g + 1) * C, 1]
-        Ry = interp(gy, origin_y)  # [B, C, S, T]
-        Cx = interp(gx, origin_x)
-        rows2 = Ry @ windows  # [B, C, S, T]
-        sampled = rows2 @ Cx.transpose(-1, -2)  # [B, C, S(y), S(x)]
-        outs.append(sampled.reshape(B, C, S * S))
-    desc = _finalize(torch.cat(outs, dim=1))
+    # [B, C, S, T] row and [B, C, T, S] column weights of each keypoint group.
+    weights = [(interp(xy[:, g * C : (g + 1) * C, 1], origin_y),
+                interp(xy[:, g * C : (g + 1) * C, 0], origin_x).transpose(-1, -2))
+               for g in range(n_per_cell)]
+    desc = torch.stack([
+        _finalize(torch.cat([(Ry[b] @ windows[b] @ Cx[b]).reshape(C, S * S)  # [C, S(y) S(x)]
+                             for Ry, Cx in weights]))
+        for b in range(B)])
     return desc[0] if single else desc

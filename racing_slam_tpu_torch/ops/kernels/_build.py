@@ -41,8 +41,8 @@ SIGNATURES = {
     # best_d, S, P, O, D, K, radius_sq, stream
     "slam_guided_match": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P],
     # uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts, n_act,
-    # best_k, best_d, P, G, O, D, K, tile_p, tile_k, band, radius_sq, stream
-    "slam_guided_match_banded": [_P] * 12 + [_I] * 8 + [_F, _P],
+    # best_k, best_d, S, P, G, O, D, K, tile_p, tile_k, band, radius_sq, stream
+    "slam_guided_match_banded": [_P] * 12 + [_I] * 9 + [_F, _P],
     # pose0, kp_uv, xyz, valid, out, S, K, fx, cx, cy, lam0, huber, ftol, iters, stream
     "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,

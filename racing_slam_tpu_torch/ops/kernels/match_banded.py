@@ -21,6 +21,13 @@ each point's run of keypoints within the radius in y (the band is sorted
 by y) instead of scanning the band, and scores the pairs that pass on the
 tensor cores (see the source). `starts` and `n_active_tiles` stay on the
 device, so the call makes no host read.
+
+Batched: S problems of equal sizes (the lockstep step of S sequences) take
+a leading S on every operand (n_active_tiles [S]) and return [S, G]
+best_k and best_d, in one launch whose grid splits the resident blocks
+over the S problems (blockIdx.y = problem); a row's answer is computed by
+one warp over that row's units, so each row equals the call on that row
+alone to the bit. One launch is one count.
 """
 
 from __future__ import annotations
@@ -52,7 +59,13 @@ def guided_match_stage1_banded_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch twin: the rows p_sel gathered, then per point tile the
     dense masked reduction over its keypoint band (gathered), inactive
-    tiles masked out on the device."""
+    tiles masked out on the device; for leading-S operands, row by row."""
+    tiles = dict(radius_px=radius_px, tile_p=tile_p, tile_k=tile_k, band_tiles=band_tiles)
+    if obs_desc.dim() == 4:
+        rows = [guided_match_stage1_banded_reference(*row, **tiles)
+                for row in zip(uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok,
+                               starts, n_active_tiles)]
+        return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
     P, O, D = obs_desc.shape
     G = p_sel.shape[0]
     dev = uv_p.device
@@ -95,21 +108,27 @@ def guided_match_stage1_banded(
     kp_desc: torch.Tensor,  # [K, D] f32 or bf16
     kp_ok: torch.Tensor,  # [K] bool
     starts: torch.Tensor,  # [G / tile_p] int32 first keypoint tile of each band
-    n_active_tiles: torch.Tensor,  # 0-d int32
+    n_active_tiles: torch.Tensor,  # 0-d int32 ([S] for S problems)
     radius_px: float = 20.0,
     tile_p: int = 256,
     tile_k: int = 512,
     band_tiles: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(best_k [G] i32 into the sorted keypoints, best_d_sq [G] f32)."""
+    """(best_k [G] i32 into the sorted keypoints, best_d_sq [G] f32), or
+    [S, G] each for S problems given a leading S on every operand."""
     tensors = (uv_p, gate_p, obs_desc, obs_valid, p_sel, kp_uv, kp_desc, kp_ok, starts,
                n_active_tiles)
     tiles = dict(radius_px=radius_px, tile_p=tile_p, tile_k=tile_k, band_tiles=band_tiles)
     if _build.device_kind(*tensors) == "cpu":
         return guided_match_stage1_banded_reference(*tensors, **tiles)
-    P, O, D = obs_desc.shape
-    G = p_sel.shape[0]
-    K = kp_uv.shape[0]
+    lead = tuple(obs_desc.shape[:-3])  # () or (S,)
+    if len(lead) > 1:
+        raise ValueError(f"obs_desc: expected [P, O, D] or [S, P, O, D], "
+                         f"got {tuple(obs_desc.shape)}")
+    S = lead[0] if lead else 1
+    P, O, D = obs_desc.shape[-3:]
+    G = p_sel.shape[-1]
+    K = kp_uv.shape[-2]
     obs_desc = _aligned(obs_desc.to(torch.bfloat16), 4)  # no-op for the state's bf16 cache
     kp_desc = _aligned(kp_desc.to(torch.float32), 8)
     kp_uv = _aligned(kp_uv, 8)
@@ -120,23 +139,23 @@ def guided_match_stage1_banded(
             or K < band_tiles * tile_k):
         raise ValueError(f"banded tiling: G={G} (tile {tile_p}, a multiple of 8), K={K} "
                          f"(tile {tile_k}), band {band_tiles} tiles <= {MAX_BAND} keypoints")
-    _build.expect(uv_p, "uv_p", torch.float32, (P, 2))
-    _build.expect(gate_p, "gate_p", torch.bool, (P,))
-    _build.expect(obs_desc, "obs_desc", torch.bfloat16, (P, O, D))
-    _build.expect(obs_valid, "obs_valid", torch.bool, (P, O))
-    _build.expect(p_sel, "p_sel", torch.int32, (G,))
-    _build.expect(kp_uv, "kp_uv", torch.float32, (K, 2))
-    _build.expect(kp_desc, "kp_desc", torch.float32, (K, D))
-    _build.expect(kp_ok, "kp_ok", torch.bool, (K,))
-    _build.expect(starts, "starts", torch.int32, (G // tile_p,))
-    _build.expect(n_active_tiles, "n_active_tiles", torch.int32, ())
-    best_k = torch.empty((G,), dtype=torch.int32, device=uv_p.device)
-    best_d = torch.empty((G,), dtype=torch.float32, device=uv_p.device)
+    _build.expect(uv_p, "uv_p", torch.float32, (*lead, P, 2))
+    _build.expect(gate_p, "gate_p", torch.bool, (*lead, P))
+    _build.expect(obs_desc, "obs_desc", torch.bfloat16, (*lead, P, O, D))
+    _build.expect(obs_valid, "obs_valid", torch.bool, (*lead, P, O))
+    _build.expect(p_sel, "p_sel", torch.int32, (*lead, G))
+    _build.expect(kp_uv, "kp_uv", torch.float32, (*lead, K, 2))
+    _build.expect(kp_desc, "kp_desc", torch.float32, (*lead, K, D))
+    _build.expect(kp_ok, "kp_ok", torch.bool, (*lead, K))
+    _build.expect(starts, "starts", torch.int32, (*lead, G // tile_p))
+    _build.expect(n_active_tiles, "n_active_tiles", torch.int32, lead)
+    best_k = torch.empty((*lead, G), dtype=torch.int32, device=uv_p.device)
+    best_d = torch.empty((*lead, G), dtype=torch.float32, device=uv_p.device)
     err = _build.lib().slam_guided_match_banded(
         _build.ptr(uv_p), _build.ptr(gate_p), _build.ptr(obs_desc), _build.ptr(obs_valid),
         _build.ptr(p_sel), _build.ptr(kp_uv), _build.ptr(kp_desc), _build.ptr(kp_ok),
         _build.ptr(starts), _build.ptr(n_active_tiles), _build.ptr(best_k), _build.ptr(best_d),
-        P, G, O, D, K, tile_p, tile_k, band_tiles, float(radius_px * radius_px),
+        S, P, G, O, D, K, tile_p, tile_k, band_tiles, float(radius_px * radius_px),
         _build.stream(uv_p.device),
     )
     _build.check(err, "guided_match_stage1_banded")

@@ -3,10 +3,10 @@
 A pose is a 4x4 float32 world->camera transform; optimisation uses the
 (rvec, t) angle-axis + translation packing. All functions broadcast over
 leading dims and branch on small angles with torch.where, never on the host.
-Their small matrix products are summed in a fixed order (matmul_in_order),
-so that a pose of a stack gives the same bits as it does alone: the
-lockstep step of S sequences must predict and commit each row as the
-single step does.
+Their small matrix products, point transforms included, are summed in a
+fixed order (matmul_in_order), so that a pose or a point of a stack gives
+the same bits as it does alone: the lockstep step of S sequences must
+project, predict and commit each row as the single step does.
 """
 
 from __future__ import annotations
@@ -132,14 +132,14 @@ def transform_points(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Apply [..., 4, 4] transform to points [..., N, 3]."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
-    return torch.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
+    return matmul_in_order(X, R.transpose(-1, -2)) + t[..., None, :]
 
 
 def transform_point(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Apply [..., 4, 4] transform to a single point [..., 3]."""
-    return torch.einsum("...ij,...j->...i", T[..., :3, :3], X) + T[..., :3, 3]
+    return matmul_in_order(T[..., :3, :3], X[..., :, None])[..., 0] + T[..., :3, 3]
 
 
 def camera_center(T: torch.Tensor) -> torch.Tensor:
     """World-space camera center of a world->camera pose: -R^T t."""
-    return -torch.einsum("...ji,...j->...i", T[..., :3, :3], T[..., :3, 3])
+    return -matmul_in_order(T[..., :3, :3].transpose(-1, -2), T[..., :3, 3, None])[..., 0]

@@ -54,12 +54,15 @@ def local_row_indices(mesh, S_global: int) -> list[int]:
 
 def multi_sequence_step(*, cam: Camera, cfg: SlamConfig, frontend):
     """The lockstep step as a function of (states, imgs [S, H, W], active
-    [S] host bools, mask, commit_nos) -> (states, MultiStepInfo), the
-    counterpart of the JAX package's jitted batched step."""
+    [S] host bools, mask, commit_nos, generators, uniforms, last_inliers)
+    -> (states, MultiStepInfo), the counterpart of the JAX package's jitted
+    batched step (slam.pipeline.slam_step_multi)."""
 
-    def step(states, imgs, active, mask, commit_nos=None):
+    def step(states, imgs, active, mask, commit_nos=None, generators=None, uniforms=None,
+             last_inliers=None):
         return slam_step_multi(states, imgs, active, mask, cam=cam, cfg=cfg, frontend=frontend,
-                               commit_nos=commit_nos)
+                               commit_nos=commit_nos, generators=generators, uniforms=uniforms,
+                               last_inliers=last_inliers)
 
     return step
 
@@ -76,10 +79,16 @@ class MultiSlam:
     (parallel/refine.make_refine_step over the mesh's 'lm' axis; without a
     mesh, on this device alone).
 
-    Configurations outside the lockstep step (the learned frontend,
-    LightGlue, the banded matcher, the adaptive and essential predictions)
-    raise NotImplementedError. The state lives on `device`, the card unless
-    told otherwise."""
+    Every pose prediction runs in the lockstep step, as does the banded
+    matcher (`matching_backend="banded"`, kernel K5 over the rows). Row i
+    draws its RANSAC uniforms from its own Slam's generator, on the frames
+    where it takes the essential prediction, so that its stream is its own
+    Slam's; `adaptive` chooses per row from the row's previous inlier count,
+    kept on the host from each lockstep frame's one read and from its
+    bootstrap. Each row's essential predictions and banded fallbacks are
+    counted (`essential_predictions`, `banded_fallbacks()`). The learned
+    frontend and LightGlue raise NotImplementedError (slice 7c). The state
+    lives on `device`, the card unless told otherwise."""
 
     def __init__(
         self,
@@ -136,6 +145,10 @@ class MultiSlam:
         # Host reads of the lockstep frames (one a frame, for all rows).
         self.host_syncs = 0
         self.frames_stepped = 0
+        # Per local row: frames on the essential-matrix prediction, and the
+        # banded matcher's dense fallbacks (on the device).
+        self.essential_predictions = [0] * S_local
+        self._band_fallbacks = torch.zeros((S_local,), dtype=torch.int64, device=self.device)
         if refine_every:
             from .refine import make_refine_step
 
@@ -193,11 +206,17 @@ class MultiSlam:
             counts = np.zeros((S_local, n), np.int64)
             for j in range(n):
                 active = [j < len(fl) for fl in frames]
-                self.states, info = self._step(self.states, imgs[j], active, self._mask,
-                                               [s._commit_no for s in self._slams])
+                self.states, info = self._step(
+                    self.states, imgs[j], active, self._mask,
+                    [s._commit_no for s in self._slams], [s._gen for s in self._slams],
+                    last_inliers=[s._last_inliers for s in self._slams])
                 self.host_syncs += 1
                 for i, s in enumerate(self._slams):
                     s._commit_no += info.is_keyframe[i]
+                    s._last_inliers = info.n_inliers[i]
+                    self.essential_predictions[i] += info.essential_prediction[i]
+                if info.band_fallbacks is not None:
+                    self._band_fallbacks += info.band_fallbacks
                 counts[:, j] = info.n_inliers
             total += n
             batches += 1
@@ -213,6 +232,12 @@ class MultiSlam:
         if pending is not None:
             self._check_lost(*pending)
         return total
+
+    def banded_fallbacks(self) -> list[int]:
+        """Per local row, the banded matcher's searches since the start
+        whose band did not fit, so that the dense kernel did the search (a
+        host read)."""
+        return self._band_fallbacks.tolist()
 
     # -- failure detection / recovery ---------------------------------------
     def _check_lost(self, counts: np.ndarray, ns_global: np.ndarray) -> None:
@@ -240,7 +265,9 @@ class MultiSlam:
         """Archive global row g's segment and re-bootstrap it from its
         current stream position; a blank row if the stream ends first (the
         sequence is then finished, and its zero masks make it a no-op in
-        refinement)."""
+        refinement). The bootstrap seeds the row's commit number and its
+        host inlier count (the adaptive prediction's signal) as Slam's own
+        does."""
         i = self.local_rows.index(g)
         s = self._slams[i]
         s.state = tree_map(torch.clone, state_row(self.states, i))

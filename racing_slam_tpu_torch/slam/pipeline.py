@@ -64,8 +64,8 @@ from ..ops import se3
 from ..ops.ba import HUBER_DELTA, BAProblem, full_ba, motion_ba, structure_ba, window_ba
 from ..ops.camera import Camera, project, project_with_depth
 from ..ops.image import bilinear_sample
-from ..ops.matching import match_map_to_frame, unmatched_mask
-from ..ops.ransac import estimate_relative_pose
+from ..ops.matching import gather_rows, match_map_to_frame, unmatched_mask
+from ..ops.ransac import compose_with_previous, estimate_relative_pose
 from ..ops.triangulation import triangulate_points
 from ..parallel.refine import (
     apply_refinement,
@@ -88,6 +88,7 @@ from .state import (
     remove_points,
     set_drop,
     set_state_row,
+    stack_states,
     state_row,
     tree_map,
     write_keyframe,
@@ -307,10 +308,13 @@ def _essential_prediction(state: SlamState, feat: Features, generator, uniforms,
     """Pose from the frame<->frame essential matrix composed onto the last
     pose. With `rescale` (the adaptive mode) the relative translation, unit
     norm from the decomposition, is scaled to the last inter-frame camera
-    displacement (JAX pipeline.py:438-455)."""
+    displacement (JAX pipeline.py:438-455). For one state, or for S stacked
+    ones (a leading S on every leaf and on `feat`, [S, H, K] `uniforms`),
+    a row of which predicts to the bit what it would alone
+    (ops/essential.py)."""
     last = state.last_feat
     fm = matcher(last.desc, last.xy, last.valid, feat.desc, feat.xy, feat.valid)
-    uv1 = last.xy[fm.train_idx]
+    uv1 = gather_rows(last.xy, fm.train_idx)
     est = estimate_relative_pose(cam, uv1, feat.xy, fm.valid, generator,
                                  num_hypotheses=cfg.ransac_hypotheses,
                                  threshold_px=cfg.ransac_threshold_px, uniforms=uniforms)
@@ -318,20 +322,12 @@ def _essential_prediction(state: SlamState, feat: Features, generator, uniforms,
     rel = est.pose
     if rescale:
         T_prev = se3.pose_matrix(state.prev_rvec, state.prev_t)
-        speed = torch.linalg.norm(se3.camera_center(T_last) - se3.camera_center(T_prev))
-        rel_t = rel[:3, 3]
+        speed = torch.linalg.norm(se3.camera_center(T_last) - se3.camera_center(T_prev), dim=-1)
+        rel_t = rel[..., :3, 3]
         rel = rel.clone()
-        rel[:3, 3] = rel_t / (torch.linalg.norm(rel_t) + 1e-9) * speed
-    return se3.rt_from_matrix(se3.compose(rel, T_last))
-
-
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] along the axis after idx's leading ones (idx clamped to >= 0):
-    [P, 3] by [K] -> [K, 3], or row by row [S, P, 3] by [S, K] -> [S, K, 3]."""
-    axis = idx.dim() - 1
-    idx = torch.clamp(idx, min=0)
-    return torch.gather(x, axis, idx.reshape(*idx.shape, *[1] * (x.dim() - axis - 1)).expand(
-        *idx.shape, *x.shape[axis + 1:]))
+        rel[..., :3, 3] = rel_t / (torch.linalg.norm(rel_t, dim=-1, keepdim=True) + 1e-9) \
+            * speed[..., None]
+    return se3.rt_from_matrix(compose_with_previous(rel, T_last))
 
 
 def _motion_prediction(state: SlamState, cfg: SlamConfig):
@@ -390,7 +386,7 @@ def _track(state: SlamState, feat: Features, rvec: torch.Tensor, t: torch.Tensor
     def optimise(rvec, t, matches):
         if not cfg.optimize_pose:
             return rvec, t
-        res = motion_ba(cam, rvec, t, feat.xy, _gather_rows(m.pos, matches), matches >= 0,
+        res = motion_ba(cam, rvec, t, feat.xy, gather_rows(m.pos, matches), matches >= 0,
                         max_iters=cfg.motion_ba_iters, huber_delta=huber)
         return res.rvec, res.t
 
@@ -410,11 +406,11 @@ def _track(state: SlamState, feat: Features, rvec: torch.Tensor, t: torch.Tensor
     # Keyframe decision + post-solve inliers (the loss signal).
     n_total = torch.sum((matches >= 0) & feat.valid, dim=-1)
     last_slot = state.last_kf_slot[..., None]
-    last_m = _gather_rows(state.kfs.matches, last_slot)[..., 0, :]
-    last_v = _gather_rows(state.kfs.kp_valid, last_slot)[..., 0, :]
+    last_m = gather_rows(state.kfs.matches, last_slot)[..., 0, :]
+    last_v = gather_rows(state.kfs.kp_valid, last_slot)[..., 0, :]
     n_last = torch.sum((last_m >= 0) & last_v, dim=-1)
     is_kf = n_total < cfg.keyframe_match_ratio * n_last
-    uv_m, depth_m = project_with_depth(cam, se3.pose_matrix(rvec, t), _gather_rows(m.pos, matches))
+    uv_m, depth_m = project_with_depth(cam, se3.pose_matrix(rvec, t), gather_rows(m.pos, matches))
     reproj_m = torch.linalg.norm(uv_m - feat.xy, dim=-1)
     n_inliers = torch.sum((matches >= 0) & feat.valid & (depth_m > 0.0)
                           & (reproj_m < cfg.inlier_px), dim=-1)
@@ -507,9 +503,11 @@ def slam_step(
 
 class MultiStepInfo(NamedTuple):
     """Per-frame diagnostics of S sequences stepped in lockstep. The device
-    fields carry a leading S; `is_keyframe` and `n_inliers` are host lists
-    (the step's one read). Rows that were not active hold what the step
-    computed on their blank frame and are to be ignored."""
+    fields carry a leading S; `is_keyframe`, `n_inliers` and
+    `essential_prediction` are host lists (the step's one read, and the
+    host choice it was made from). Rows that were not active hold what the
+    step computed on their blank frame and are to be ignored, but for
+    `n_inliers` (the row's kept count) and `band_fallbacks` (0)."""
 
     rvec: torch.Tensor
     t: torch.Tensor
@@ -521,35 +519,89 @@ class MultiStepInfo(NamedTuple):
     n_keyframes: torch.Tensor
     reproj_error_px: torch.Tensor
     n_inliers: list
+    essential_prediction: list | None = None  # per row: the essential-matrix prediction ran
+    band_fallbacks: torch.Tensor | None = None  # [S] banded matcher: dense fallbacks (0-2)
 
 
 def check_multi_config(cfg: SlamConfig, frontend) -> None:
     """Raise NotImplementedError for a configuration the lockstep step does
-    not take: it runs the classical frontend, the dense matcher and the
-    constant-velocity or constant-position prediction."""
+    not take: it runs the classical frontend and the mutual 1-NN frame
+    matcher (under every pose prediction, with the dense or the banded map
+    matcher)."""
     refused = []
     if not isinstance(frontend, ClassicalFrontend):
         refused.append(f"the {type(frontend).__name__} frontend")
     if cfg.matcher != "classical":
         refused.append(f"matcher={cfg.matcher!r}")
-    if cfg.matching_backend == "banded":
-        refused.append("matching_backend='banded'")
-    if cfg.essential_matrix_estimation:
-        refused.append("essential_matrix_estimation=True")
-    if cfg.pose_prediction not in ("constant_velocity", "constant_position"):
-        refused.append(f"pose_prediction={cfg.pose_prediction!r}")
     if refused:
         raise NotImplementedError(
             f"the multi-sequence step does not take {', '.join(refused)} yet "
-            "(ROADMAP.md Queue 1, slice 7b); run such sequences one by one through Slam")
+            "(ROADMAP.md Queue 1, slice 7c); run such sequences one by one through Slam")
 
 
 def _row_mask(S: int, rows: list, device) -> torch.Tensor:
     """[S] bool on the device, True at `rows`, filled there (no host copy)."""
     mask = torch.zeros((S,), dtype=torch.bool, device=device)
     for i in rows:
-        mask[i] = True
+        mask[i:i + 1].fill_(True)  # mask[i] = True would copy a host scalar and wait
     return mask
+
+
+class _Motion(NamedTuple):
+    """The leaves of a state that the essential prediction reads."""
+
+    last_feat: Features
+    last_rvec: torch.Tensor
+    last_t: torch.Tensor
+    prev_rvec: torch.Tensor
+    prev_t: torch.Tensor
+
+
+def _multi_prediction(states: SlamState, feat: Features, rows: list, *, cam: Camera,
+                      cfg: SlamConfig, frontend, generators, uniforms, last_inliers):
+    """The [S] predicted poses of the lockstep step and each row's host
+    choice: the motion prediction, or, for the rows that take it (every
+    active row with essential_matrix_estimation; with adaptive, the active
+    rows whose previous inliers fall below adaptive_pred_inliers), the
+    essential prediction run over those rows stacked. A row draws its
+    [H, K] uniforms from its own generator only then, as its own Slam
+    does; `uniforms` [S, H, K] fixes them instead."""
+    S = feat.valid.shape[0]
+    rvec, t = _motion_prediction(states, cfg)
+    if cfg.essential_matrix_estimation:
+        chosen = [i in rows for i in range(S)]
+    elif cfg.pose_prediction == "adaptive":
+        if last_inliers is None:
+            last_inliers = states.last_inliers.tolist()
+        chosen = [i in rows and last_inliers[i] < cfg.adaptive_pred_inliers for i in range(S)]
+    else:
+        return rvec, t, [False] * S
+    sub = [i for i in range(S) if chosen[i]]
+    if not sub:
+        return rvec, t, chosen
+    K = feat.valid.shape[-1]
+    dev = feat.xy.device
+    if uniforms is None:
+        if generators is None:
+            raise ValueError("the essential prediction needs each row's generator or uniforms")
+        uniforms = torch.stack([torch.rand((cfg.ransac_hypotheses, K), generator=generators[i],
+                                           device=dev, dtype=torch.float32) for i in sub])
+    elif len(sub) < S:
+        uniforms = stack_states([uniforms[i] for i in sub], dev)
+    motion = _Motion(states.last_feat, states.last_rvec, states.last_t, states.prev_rvec,
+                     states.prev_t)
+    if len(sub) < S:  # the rows that take it, stacked (no host index: no copy to the card)
+        motion = stack_states([state_row(motion, i) for i in sub], dev)
+        feat = stack_states([state_row(feat, i) for i in sub], dev)
+    e_rvec, e_t = _essential_prediction(
+        motion, feat, None, uniforms, cam=cam, cfg=cfg, matcher=frontend.matcher,
+        rescale=not cfg.essential_matrix_estimation)
+    if len(sub) == S:
+        return e_rvec, e_t, chosen
+    at = {i: j for j, i in enumerate(sub)}
+    rvec, t = stack_states([state_row((e_rvec, e_t), at[i]) if i in at else state_row((rvec, t), i)
+                            for i in range(S)], dev)
+    return rvec, t, chosen
 
 
 def slam_step_multi(
@@ -562,6 +614,9 @@ def slam_step_multi(
     cfg: SlamConfig,
     frontend,
     commit_nos: list | None = None,
+    generators: list | None = None,
+    uniforms: torch.Tensor | None = None,
+    last_inliers: list | None = None,
 ) -> tuple[SlamState, MultiStepInfo]:
     """One tracking step of S sequences in lockstep (the JAX package's
     `vmap` of its step, multi_seq.py:82-109): `states` stacked (leading S on
@@ -571,33 +626,46 @@ def slam_step_multi(
 
     The tracking is slam_step's own (_track over the stacked rows): K1 runs
     once for the S frames and K2 and K3 twice, each one launch for all
-    rows. The [S] keyframe decisions and inlier counts come back in the
-    step's one host read; then each active row that commits runs
-    `_commit_keyframe` on its own (K4 once a committing row), written back
-    into the stacked state in place (slam.state.set_state_row). The JAX
-    package runs the commit for every row under `select`; the results are
-    the same, the commit work is not. `commit_nos` are the rows' commit
-    numbers (see _commit_keyframe). Returns (states, MultiStepInfo); the
-    input `states` is updated in place where rows commit."""
+    rows; the banded matcher (`matching_backend="banded"`) launches K5 and
+    its K2 fallback once for all rows too, each row falling back alone. The
+    pose prediction is slam_step's: the motion prediction, or the
+    essential prediction over the rows that take it, drawing row i's
+    RANSAC uniforms from `generators[i]` (or taking them from `uniforms`
+    [S, H, K]); `adaptive` chooses per row from `last_inliers`, each row's
+    state.last_inliers as host ints (the previous lockstep frame's read;
+    when None, the step reads them, a second read). The [S] keyframe
+    decisions and inlier counts come back in the step's one host read;
+    then each active row that commits runs `_commit_keyframe` on its own
+    (K4 once a committing row), written back into the stacked state in
+    place (slam.state.set_state_row). The JAX package runs the commit for
+    every row under `select`; the results are the same, the commit work is
+    not. `commit_nos` are the rows' commit numbers (see _commit_keyframe).
+    Returns (states, MultiStepInfo); the input `states` is updated in place
+    where rows commit."""
     check_multi_config(cfg, frontend)
     S = imgs.shape[0]
     dev = imgs.device
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) * (1.0 / 255.0)
     feat = frontend.extract(imgs, mask)
-    rvec, t = _motion_prediction(states, cfg)
+    rows = [i for i in range(S) if active[i]]
+    rvec, t, essential = _multi_prediction(
+        states, feat, rows, cam=cam, cfg=cfg, frontend=frontend, generators=generators,
+        uniforms=uniforms, last_inliers=last_inliers)
     tr = _track(states, feat, rvec, t, cam=cam, cfg=cfg, frontend=frontend)
     tracked = tr.state
-    rows = [i for i in range(S) if active[i]]
     act = None
+    fell_back = tr.band_fallbacks
     if len(rows) < S:  # inactive rows keep their state (JAX's `active` cond)
         act = _row_mask(S, rows, dev)
         tracked = type(states)(*[
             v if v is old else tree_map(
                 lambda a, b: torch.where(act.reshape(S, *[1] * (a.dim() - 1)), a, b), v, old)
             for v, old in zip(tracked, states)])
+        if fell_back is not None:
+            fell_back = torch.where(act, fell_back, torch.zeros_like(fell_back))
     # The lockstep frame's one host read.
-    is_kf_h, n_inl_h = torch.stack([tr.is_kf.to(I64), tr.state.last_inliers]).tolist()
+    is_kf_h, n_inl_h = torch.stack([tr.is_kf.to(I64), tracked.last_inliers]).tolist()
     states = tracked
     commits = [i for i in rows if is_kf_h[i]]
     for i in commits:
@@ -633,6 +701,8 @@ def slam_step_multi(
         n_keyframes=states.num_kf,
         reproj_error_px=states.reproj_px,
         n_inliers=[int(x) for x in n_inl_h],
+        essential_prediction=essential,
+        band_fallbacks=fell_back,
     )
     return states, info
 

@@ -103,7 +103,8 @@ def register_lines(name: str, log: str) -> list[str]:
 def launchers(name: str, so: Path, csrc: Path, kernels: list) -> dict:
     """{kernel: call(recorded args, outputs, stream)} for one build; the K2
     builds before the device `skip` flag take one pointer fewer, the K5
-    builds before p_sel take gathered rows. The library binds its own
+    builds before p_sel take gathered rows, and those with a sequence axis
+    take S = 1 before the sizes. The library binds its own
     symbols first (RTLD_DEEPBIND)."""
     lib = ctypes.CDLL(str(so), mode=os.RTLD_LOCAL | os.RTLD_DEEPBIND)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -152,9 +153,11 @@ def launchers(name: str, so: Path, csrc: Path, kernels: list) -> dict:
                       kw["init_lambda"], kw["huber_delta"], kw["ftol"], kw["max_iters"], stream)
         calls["k3"] = call3
     if "k5" in kernels:
-        reads_p_sel = "p_sel" in (csrc / KERNELS["k5"][0]).read_text()
-        k5 = fn("k5", [P] * (12 if reads_p_sel else 11) + [I] * (8 if reads_p_sel else 7)
-                + [F, P])
+        src5 = (csrc / KERNELS["k5"][0]).read_text()
+        reads_p_sel = "p_sel" in src5
+        batched5 = "blockIdx.y" in src5  # the sequence axis: S before the sizes
+        k5 = fn("k5", [P] * (12 if reads_p_sel else 11)
+                + [I] * ((8 if reads_p_sel else 7) + batched5) + [F, P])
 
         def call5(a, out, stream):
             args, gathered, tiles = a
@@ -162,7 +165,7 @@ def launchers(name: str, so: Path, csrc: Path, kernels: list) -> dict:
             Pn, O, D = obs.shape
             G = p_sel.shape[0]
             rows = (uv_p, gate, obs, ov, p_sel) if reads_p_sel else gathered
-            sizes = (Pn, G) if reads_p_sel else (G,)
+            sizes = ((1,) if batched5 else ()) + ((Pn, G) if reads_p_sel else (G,))
             return k5(*[t.data_ptr() for t in (*rows, kuv, kd, kok, starts, n_act, *out)],
                       *sizes, O, D, kuv.shape[0], tiles["tile_p"], tiles["tile_k"],
                       tiles["band_tiles"], float(tiles["radius_px"] ** 2), stream)

@@ -6,7 +6,7 @@ Run from the root of a checkout on one CUDA card:
 
     python3 -m racing_slam_tpu_torch.tools.pose_probe --accuracy 3 \\
         --paths essential,adaptive --seeds 3,5,7,8,9 --slam-seeds 0,1,2 \\
-        [--worlds build/worlds]
+        [--worlds build/worlds] [--frames 304] [--dump-flips FILE]
 
 ``--accuracy S`` takes every 6th pair of consecutive frames of seed S's
 bench world, matches them with the classical frontend on the card, and
@@ -17,6 +17,12 @@ float32 and in float64, each on the card and on the CPU from the same
 matches and uniforms. It prints the angle of the estimated translation
 direction and of the rotation against the ground truth (median, 90th
 percentile, maximum), and the host wall time of one estimate on the card.
+
+``--dump-flips FILE`` writes the pairs whose rotation comes out more than
+90 degrees off on the card in float64 (a cheirality choice of the wrong
+decomposition) to an .npz: each pair's matched pixels, mask, uniforms and
+ground-truth relative pose, for a comparison with the JAX package's
+decomposition on the CPU (tests/decompose_probe.py).
 
 ``--paths P,...`` runs each ``chip_smoke.py`` path on each seed's world
 (``--seeds``) for each seed of the port's bootstrap generator
@@ -48,7 +54,7 @@ def _angle(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.degrees(np.arccos(min(c, 1.0))))
 
 
-def accuracy(frames: list, gt: np.ndarray, cam) -> None:
+def accuracy(frames: list, gt: np.ndarray, cam, dump: Path | None = None) -> None:
     import torch
 
     from racing_slam_tpu_torch.ops import essential, ransac
@@ -58,6 +64,7 @@ def accuracy(frames: list, gt: np.ndarray, cam) -> None:
     modes = [(dev, dt) for dev in ("cuda", "cpu") for dt in (torch.float32, torch.float64)]
     t_err = {m: [] for m in modes}
     r_err = {m: [] for m in modes}
+    flips = []
     for i in range(2, len(frames) - 1, 6):
         f0, f1 = [fe.extract(torch.from_numpy(frames[j].astype(np.float32) / 255.0).cuda())
                   for j in (i, i + 1)]
@@ -74,6 +81,8 @@ def accuracy(frames: list, gt: np.ndarray, cam) -> None:
             t_err[dev, dt].append(_angle(P[:3, 3], T[:3, 3]))
             c = (np.trace(P[:3, :3].T @ T[:3, :3]) - 1.0) / 2.0
             r_err[dev, dt].append(float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))))
+            if (dev, dt) == ("cuda", torch.float64) and r_err[dev, dt][-1] > 90.0:
+                flips.append((i, [x.cpu().numpy() for x in args], T))
     for dev, dt in modes:
         essential.SOLVE_DTYPE = dt
         wall = None
@@ -93,6 +102,16 @@ def accuracy(frames: list, gt: np.ndarray, cam) -> None:
             t_deg_max=float(t.max()), R_deg_median=float(np.median(r)),
             R_deg_max=float(r.max()), estimate_wall_ms=wall)), flush=True)
     essential.SOLVE_DTYPE = torch.float64
+    print("pose_probe " + json.dumps(dict(probe="flips", pairs=[i for i, _, _ in flips],
+                                          R_deg=[r_err["cuda", torch.float64][(i - 2) // 6]
+                                                 for i, _, _ in flips])), flush=True)
+    if dump is not None and flips:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(dump, frame=np.array([i for i, _, _ in flips]),
+                 **{f"{k}_{n}": a[j] for n, (_, a, _) in enumerate(flips)
+                    for j, k in enumerate(("uv1", "uv2", "mask", "uniforms"))},
+                 **{f"T_{n}": T for n, (_, _, T) in enumerate(flips)},
+                 cam=np.array(tuple(cam), np.float64))
 
 
 def cli_world(cam) -> tuple[list, np.ndarray]:
@@ -141,6 +160,8 @@ def main() -> int:
     ap.add_argument("--seeds", default="3")
     ap.add_argument("--slam-seeds", default="0")
     ap.add_argument("--worlds", type=Path, default=None)
+    ap.add_argument("--frames", type=int, default=304, help="length of the bench worlds")
+    ap.add_argument("--dump-flips", type=Path, default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())  # this checkout's chip_smoke and port
 
@@ -155,12 +176,12 @@ def main() -> int:
     seeds = [int(x) for x in args.seeds.split(",")]
     need = sorted(({args.accuracy} if args.accuracy is not None else set())
                   | (set(seeds) if set(args.paths.split(",")) - {"", "cli"} else set()))
-    world = worlds(need, 304, args.worlds)
+    world = worlds(need, args.frames, args.worlds)
     _build.build()
     _build.lib()
     cam = _camera()
     if args.accuracy is not None:
-        accuracy(*world[args.accuracy], cam)
+        accuracy(*world[args.accuracy], cam, args.dump_flips)
     for path in filter(None, args.paths.split(",")):
         for s in seeds if path != "cli" else [0]:
             for g in [int(x) for x in args.slam_seeds.split(",")]:

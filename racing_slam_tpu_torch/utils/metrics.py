@@ -1,4 +1,4 @@
-"""Trajectory evaluation: Sim(3) alignment + ATE (port of
+"""Trajectory evaluation: Sim(3) alignment, ATE and rotation error (port of
 racing_slam_tpu/utils/metrics.py; numpy on the host)."""
 
 from __future__ import annotations
@@ -39,3 +39,14 @@ def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray, align: bool = True) ->
         c_est = (s * (R @ c_est.T)).T + t
     err = np.linalg.norm(c_est - c_gt, axis=-1)
     return float(np.sqrt((err**2).mean()))
+
+
+def rotation_errors_deg(est_poses: np.ndarray, gt_poses: np.ndarray) -> np.ndarray:
+    """Per-frame rotation error in degrees, [N]: each rotation taken relative
+    to its sequence's first frame (removing the global gauge rotation), then
+    the angle of est_i gt_i^T. est_poses, gt_poses: [N, 4, 4] world->camera."""
+    R_est = est_poses[:, :3, :3] @ est_poses[0, :3, :3].T
+    R_gt = gt_poses[:, :3, :3] @ gt_poses[0, :3, :3].T
+    dR = R_est @ np.transpose(R_gt, (0, 2, 1))
+    c = np.clip((np.trace(dR, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
+    return np.degrees(np.arccos(c))

@@ -208,3 +208,46 @@ def test_ransac_sampling_is_uniform_over_valid_rows(rng):
     assert all(len(set(r)) == 8 for r in idx)
     counts = np.bincount(idx.ravel(), minlength=50)[10:30]
     assert counts.min() > 0.8 * counts.mean()
+
+
+def test_batched_ransac_rows_equal_single_calls(rng):
+    """estimate_relative_pose over S=3 view pairs ([S, N, 2] matches, [S, N]
+    masks, [S, H, N] uniforms) equals each pair alone to the bit (the
+    lockstep step's essential prediction): sums and small products in a
+    fixed order, the solvers one row a call. Row 1 has 30 % of its matches
+    masked out and row 2 40 % outliers; decompose() of the stacked E
+    equals its rows' too, the four candidates on the axis before the 3x3."""
+    pairs = []
+    for s in range(3):
+        jc, pose2, X, uv1, uv2 = _two_view(rng, n=120, noise=0.2)
+        uv2 = uv2.copy()
+        if s == 2:
+            out = rng.uniform(size=len(uv2)) < 0.4
+            uv2[out] = rng.uniform(0, 480, (out.sum(), 2)).astype(np.float32)
+        mask = rng.uniform(size=len(uv1)) >= (0.3 if s == 1 else 0.0)
+        pairs.append((uv1, uv2, mask, rng.uniform(size=(64, len(uv1))).astype(np.float32)))
+    cam = tcam.Camera(*jc)
+    args = [T(np.stack([p[i] for p in pairs])) for i in range(4)]
+    est = trans.estimate_relative_pose(cam, *args[:3], uniforms=args[3], threshold_px=1.0)
+    assert est.pose.shape == (3, 4, 4) and est.num_inliers.shape == (3,)
+    for s in range(3):
+        one = trans.estimate_relative_pose(cam, *[a[s] for a in args[:3]], uniforms=args[3][s],
+                                           threshold_px=1.0)
+        for got, want in zip(est, one):
+            assert torch.equal(got[s], want)
+    Rs, ts = tess.decompose(est.essential)
+    assert Rs.shape == (3, 4, 3, 3) and ts.shape == (3, 4, 3)
+    for s in range(3):
+        r1, t1 = tess.decompose(est.essential[s])
+        assert torch.equal(Rs[s], r1) and torch.equal(ts[s], t1)
+
+
+def test_compose_with_previous_matches_jax(rng):
+    from racing_slam_tpu.ops.ransac import compose_with_previous as jax_compose
+
+    rel = tse3.pose_matrix(T(_rvecs(rng, 16)), T(rng.normal(size=(16, 3)).astype(np.float32)))
+    prev = tse3.pose_matrix(T(_rvecs(rng, 16)), T(rng.normal(size=(16, 3)).astype(np.float32)))
+    got = trans.compose_with_previous(rel, prev).numpy()
+    for i in range(16):
+        want = np.asarray(jax_compose(jnp.asarray(rel[i].numpy()), jnp.asarray(prev[i].numpy())))
+        np.testing.assert_allclose(got[i], want, atol=1e-5)

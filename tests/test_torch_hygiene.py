@@ -40,7 +40,7 @@ SLICE_MODULES = [
     "racing_slam_tpu_torch.ops.kernels.match_banded", "racing_slam_tpu_torch.parallel",
     "racing_slam_tpu_torch.parallel.refine", "racing_slam_tpu_torch.parallel.mesh",
     "racing_slam_tpu_torch.parallel.dist_ba", "racing_slam_tpu_torch.parallel.multi_seq",
-    "racing_slam_tpu_torch.tools.scaling",
+    "racing_slam_tpu_torch.tools.scaling", "racing_slam_tpu_torch.tools.path_ab",
     "racing_slam_tpu_torch.ops.kernels.motion_ba",
     "racing_slam_tpu_torch.ops.kernels.structure_ba", "racing_slam_tpu_torch.ops.kernels.attention",
     "racing_slam_tpu_torch.models", "racing_slam_tpu_torch.models.lightglue",

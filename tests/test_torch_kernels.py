@@ -737,3 +737,49 @@ def test_k3_batched_equals_single_launches(cuda, K):
         np.testing.assert_allclose(out[s, 3:6], ref[s, 3:6], atol=1e-4)
         assert abs(out[s, 6] - ref[s, 6]) <= 0.01 * ref[s, 6] + 1e-10, (s, out[s, 6], ref[s, 6])
         assert out[s, 7] == ref[s, 7] == 10
+
+
+def test_k5_batched_equals_single_launches(cuda):
+    """K5 over S = 8 problems in one launch (the multi-sequence step's
+    shape: a leading S on every operand, each row planned by band_plan on
+    its own frame and map view; P = 1000, K = 2400 on 640x480, bands of 4
+    keypoint tiles): each row bit-equal to a launch of that row alone, one
+    count for the batched call, and each row held to the twin at
+    test_k5_run_cases_match_twin's tolerances. Row 7 gates 200 points over
+    the whole frame, so its band needs all 5 keypoint tiles and does not
+    fit: its K5 row does no work, and the banded stage 1 answers that row
+    with K2 (skip per row), each of its rows equal to the stage run on
+    that row alone."""
+    S = 8
+    cases = [_k5_case(np.random.default_rng(300 + s), "inactive") for s in range(S)]
+    tiles = cases[0][1]
+    data = [list(c[0]) for c in cases]
+    keep = np.zeros_like(data[7][1])
+    keep[np.random.default_rng(9).choice(len(keep), 200, replace=False)] = True
+    data[7][1] = keep
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack([d[i] for d in data]))).to(cuda)
+            for i in range(7)]
+    args[2] = args[2].to(torch.bfloat16)
+    plan = matching.band_plan(*args, **tiles)
+    assert plan.fits.tolist() == [True] * 7 + [False]
+    n_act = torch.where(plan.fits, plan.n_act, torch.zeros_like(plan.n_act)).to(torch.int32)
+    kargs = (*plan.k5_args, n_act)
+    before = k5.launches
+    bk, bd = k5.guided_match_stage1_banded(*kargs, **tiles)
+    assert k5.launches == before + 1 and bk.shape == (S, plan.p_sel.shape[1])
+    rk, rd = k5.guided_match_stage1_banded_reference(*kargs, **tiles)
+    for s in range(S):
+        sk, sd = k5.guided_match_stage1_banded(*[a[s] for a in kargs], **tiles)
+        assert torch.equal(bk[s], sk) and torch.equal(bd[s], sd), f"row {s} differs from its launch"
+        hit = rd[s] < 1e9
+        assert float((bd[s] - rd[s]).abs().max()) <= 1e-5
+        if s < 7:
+            assert int(hit.sum()) > 400
+            assert float((bk[s][hit] == rk[s][hit]).float().mean()) >= 0.999
+    assert bool((bd[7] == 1e9).all()) and bool((bk[7] == 0).all())
+    fk, fd, fell_back = matching._banded_stage1(*args, **tiles)
+    assert fell_back.tolist() == [False] * 7 + [True]
+    for s in range(S):
+        ok, od, ofb = matching._banded_stage1(*[a[s] for a in args], **tiles)
+        assert torch.equal(fk[s], ok) and torch.equal(fd[s], od) and bool(ofb) == bool(fell_back[s])
+    assert int((fd[7] < 1e9).sum()) > 100  # K2 answered the row that did not fit

@@ -299,3 +299,76 @@ def test_banded_map_to_frame_matches_jax(rng, case):
     dense = tm.match_map_to_frame(Camera(*cam), *tk, max_distance=0.8)
     assert dense.fell_back is None
     assert (dense.valid.numpy() == gv).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# S frames at once (the lockstep step of S sequences)
+# ---------------------------------------------------------------------------
+
+
+def test_k5_twin_batched_equals_single_calls(rng):
+    """The K5 twin over S=3 problems equals three single calls (atol 0)."""
+    rows = [_banded_inputs(rng) for _ in range(3)]
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack([r[i] for r in rows])))
+            for i in range(9)]
+    args[2] = args[2].to(torch.bfloat16)
+    P, G = args[0].shape[1], args[0].shape[1]
+    p_sel = torch.arange(G, dtype=torch.int32).expand(3, G).contiguous()
+    n_act = torch.from_numpy(np.stack([r[8] for r in rows]))
+    n_act[1] = 1  # only the first tile of row 1 active
+    kargs = (*args[:4], p_sel, *args[4:8], n_act)
+    tiles = dict(radius_px=20.0, tile_p=64, tile_k=128, band_tiles=2)
+    bk, bd = guided_match_stage1_banded_reference(*kargs, **tiles)
+    assert bk.shape == bd.shape == (3, G) and (bd < 1e9).sum() > 300
+    for s in range(3):
+        sk, sd = guided_match_stage1_banded_reference(*[a[s] for a in kargs], **tiles)
+        assert torch.equal(bk[s], sk) and torch.equal(bd[s], sd)
+    assert bool((bd[1, 64:] == 1e9).all())
+
+
+def test_banded_stage1_rows_equal_single_frames(rng):
+    """band_plan and the banded stage 1 over S=3 frames, each row planned
+    alone: every plan field and result row equals the single frame's,
+    with K=2400 on 640x480 (5 keypoint tiles): rows 0 and 2 hold their
+    points in a 40-pixel strip, so their bands fit, and row 1's points
+    span the frame, so K2 answers that row alone (fell_back [F, T, F])."""
+    rows = []
+    for s in range(3):
+        uv_p, gate, obs, ov, kp_uv, kp, kp_ok = _stage1_inputs(rng, 300, 4, 64, 2400)
+        kp_uv = np.stack([rng.uniform(0, 640, 2400), rng.uniform(0, 480, 2400)], -1)
+        src = rng.integers(0, 2400, 300)
+        if s != 1:
+            src = rng.choice(np.nonzero((kp_uv[:, 1] > 200) & (kp_uv[:, 1] < 240))[0], 300)
+        uv_p = kp_uv[src] + rng.uniform(-5, 5, (300, 2))
+        rows.append([a.astype(np.float32) if a.dtype == np.float64 else a
+                     for a in (uv_p, gate, obs, ov, kp_uv, kp, kp_ok)])
+    args = [torch.from_numpy(np.ascontiguousarray(np.stack([r[i] for r in rows])))
+            for i in range(7)]
+    args[2] = args[2].to(torch.bfloat16)
+    plan = tm.band_plan(*args, radius_px=20.0)
+    bk, bd, fell_back = tm._banded_stage1(*args, radius_px=20.0)
+    assert fell_back.tolist() == [False, True, False]
+    for s in range(3):
+        one = [a[s] for a in args]
+        p1 = tm.band_plan(*one, radius_px=20.0)
+        for got, want in zip((*plan.k5_args[4:], plan.n_act, plan.fits, plan.kp_order),
+                             (*p1.k5_args[4:], p1.n_act, p1.fits, p1.kp_order)):
+            assert torch.equal(got[s], want)
+        sk, sd, sf = tm._banded_stage1(*one, radius_px=20.0)
+        assert torch.equal(bk[s], sk) and torch.equal(bd[s], sd) and bool(sf) == bool(fell_back[s])
+        assert (sd < 1e9).sum() > 100
+
+
+def test_match_frames_rows_equal_single_pairs(rng):
+    """match_frames over S=3 frame pairs equals each pair alone (atol 0)."""
+    S, K, D = 3, 150, 128
+    d1 = _unit(rng.standard_normal((S, K, D))).astype(np.float32)
+    d2 = _unit(d1[:, ::-1] + 0.03 * rng.standard_normal((S, K, D))).astype(np.float32)
+    v1, v2 = rng.uniform(size=(S, K)) < 0.9, rng.uniform(size=(S, K)) < 0.9
+    T = torch.from_numpy
+    got = tm.match_frames(T(d1), T(v1), T(d2), T(v2), 0.8)
+    assert int(got.valid.sum()) > 100
+    for s in range(S):
+        one = tm.match_frames(T(d1[s]), T(v1[s]), T(d2[s]), T(v2[s]), 0.8)
+        for a, b in zip(got, one):
+            assert torch.equal(a[s], b)

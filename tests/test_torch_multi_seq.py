@@ -21,12 +21,30 @@ slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
     and the batched frontend equals per-frame extraction.
 (f) A lockstep frame makes one host read and one K1, two K2 and two K3
     calls, whatever S; inactive rows are left as they were.
-(g) Configurations outside the lockstep step raise NotImplementedError.
+(g) Configurations outside the lockstep step (the learned frontend,
+    LightGlue: slice 7c) raise NotImplementedError.
+(h) The pose predictions and the banded matcher in the lockstep step:
+    (a) under essential_matrix_estimation, adaptive (as it comes, where
+    one row takes the essential prediction on a frame and the other does
+    not, and forced with a threshold above any inlier count) and
+    matching_backend="banded" (as it comes, and with band tiles narrowed
+    so that a row's band does not fit while the other's does: the
+    320x240 world never has the more than 1024 valid keypoints that make
+    the default band fail); each row's essential predictions and banded
+    fallbacks equal its Slam's. And (b) under the same configurations,
+    each row's RANSAC uniforms drawn from JAX's key for that row and frame
+    as jax.random.uniform(key, (H, K)) (tests/test_torch_pipeline.py's
+    rule): JAX's vmapped step runs the banded Pallas kernel in interpret
+    mode under vmap on the CPU, so the banded case holds the port against
+    JAX's slam_step row by row instead.
 """
 
 import dataclasses
+import functools
+from functools import partial
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -35,8 +53,10 @@ from racing_slam_tpu.ops.camera import Camera as JaxCamera
 from racing_slam_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from racing_slam_tpu.parallel.multi_seq import MultiSlam as JaxMultiSlam
 from racing_slam_tpu.parallel.multi_seq import multi_sequence_step as jax_multi_sequence_step
+from racing_slam_tpu.slam import pipeline as jp
 from racing_slam_tpu.slam.config import SlamConfig as JaxSlamConfig
 from racing_slam_tpu.utils.video import ArraySource as JaxArraySource
+from racing_slam_tpu_torch.ops import matching
 from racing_slam_tpu_torch.ops.ba import full_ba
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
@@ -75,22 +95,27 @@ def world():
 
 def _multi_against_per_sequence_slam(world, cfg, frames: int, batch: int):
     cam, seqs = world
-    single = []
+    single, slams = [], []
     for i, s in enumerate(seqs):
         slam = tp.Slam(cam, ArraySource(s.frames), cfg, seed=i, device="cpu")
         assert slam.initialize()
         slam.run_batched(max_frames=frames, batch=batch)
         single.append(slam.state)
+        slams.append(slam)
     ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
     assert ms.initialize()
     assert ms.run_batched(max_frames=frames, batch=batch) == frames
     assert ms.host_syncs == ms.frames_stepped == frames
+    assert ms.essential_predictions == [s.essential_predictions for s in slams]
+    if cfg.matching_backend == "banded":
+        assert ms.banded_fallbacks() == [s.banded_fallbacks() for s in slams]
     for got, want in zip(ms.states_per_sequence(), single):
         assert torch.equal(got.kfs.valid, want.kfs.valid)
         assert int(got.num_kf) == int(want.num_kf)
         np.testing.assert_allclose(got.last_rvec.numpy(), want.last_rvec.numpy(), atol=1e-5)
         np.testing.assert_allclose(got.last_t.numpy(), want.last_t.numpy(), atol=1e-5)
         assert _equal_states(got, want)  # every leaf, to the bit
+    return ms
 
 
 def test_multi_slam_matches_per_sequence_slam(world):
@@ -102,6 +127,138 @@ def test_multi_slam_matches_per_sequence_slam_constant_velocity(world):
     the worlds have left after the bootstrap."""
     _multi_against_per_sequence_slam(world, tiny_cfg(pose_prediction="constant_velocity"),
                                      frames=8, batch=4)
+
+
+def _narrow_bands(monkeypatch):
+    """Band tiles of 96 keypoints and point tiles of 64 rows, so that on the
+    tiny world the second row's band does not fit on its first frames
+    while the first row's always does."""
+    monkeypatch.setattr(matching, "_banded_stage1",
+                        functools.partial(matching._banded_stage1, tile_p=64, tile_k=96))
+
+
+PREDICTION_CASES = {
+    "essential": dict(essential_matrix_estimation=True),
+    "adaptive": dict(pose_prediction="adaptive"),
+    "adaptive_forced": dict(pose_prediction="adaptive", adaptive_pred_inliers=1 << 30),
+    "banded": dict(matching_backend="banded"),
+    "banded_no_fit": dict(matching_backend="banded"),
+}
+
+
+@pytest.mark.parametrize("case", list(PREDICTION_CASES))
+def test_multi_slam_matches_per_sequence_slam_predictions(world, monkeypatch, case):
+    """(h) (a): every leaf to the bit after 8 lockstep frames (batches of
+    4), the per-row counters equal, and each case does what it names."""
+    if case == "banded_no_fit":
+        _narrow_bands(monkeypatch)
+    ms = _multi_against_per_sequence_slam(world, tiny_cfg(**PREDICTION_CASES[case]), frames=8,
+                                          batch=4)
+    if case in ("essential", "adaptive_forced"):
+        assert ms.essential_predictions == [8, 8]
+    elif case == "adaptive":
+        assert 0 < sum(ms.essential_predictions) < 16  # a frame with one row on each branch
+    elif case == "banded":
+        assert ms.banded_fallbacks() == [0, 0]
+    else:
+        fb = ms.banded_fallbacks()
+        assert 0 == fb[0] < fb[1] < 16, fb
+
+
+def test_adaptive_signal_follows_the_rebootstrap(world):
+    """A row re-bootstrapped mid-run (as the loss recovery does) seeds its
+    host inlier count, the adaptive choice's signal, with its state's (the
+    bootstrap's match count), and the next lockstep frame chooses each
+    row's prediction from it."""
+    cam, seqs = world
+    cfg = tiny_cfg(pose_prediction="adaptive", adaptive_pred_inliers=60)
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
+    assert ms.initialize()
+    ms.run_batched(max_frames=2, batch=2)
+    ms._reinit_sequence(0)
+    signal = [sl._last_inliers for sl in ms._slams]
+    assert signal == ms.states.last_inliers.tolist()
+    assert signal[0] == int(ms._slams[0].state.last_inliers) > 0
+    before = list(ms.essential_predictions)
+    ms.run_batched(max_frames=1, batch=1)
+    took = [a - b for a, b in zip(ms.essential_predictions, before)]
+    assert took == [int(n < cfg.adaptive_pred_inliers) for n in signal]
+    assert [sl._last_inliers for sl in ms._slams] == ms.states.last_inliers.tolist()
+
+
+@pytest.fixture(scope="module")
+def jax_boot(world):
+    """The JAX package's MultiSlam bootstrapped on its {"seq": 2, "lm": 4}
+    CPU mesh (the bootstrap reads neither the prediction nor the map
+    matcher): the mesh, the frontend and the stacked states as numpy."""
+    cam, seqs = world
+    mesh = jax_make_mesh({"seq": 2, "lm": 4})
+    jcfg = JaxSlamConfig(**dataclasses.asdict(tiny_cfg(pose_prediction="constant_velocity")))
+    jms = JaxMultiSlam(JaxCamera(*cam), [JaxArraySource(s.frames) for s in seqs], mesh, jcfg)
+    assert jms.initialize()
+    return mesh, jms.frontend, jax.tree.map(np.asarray, jms.states)
+
+
+@pytest.mark.parametrize("case", ["essential", "adaptive_forced", "banded"])
+def test_step_matches_jax_multi_sequence_step_predictions(world, jax_boot, case):
+    """(h) (b): slam_step_multi against JAX's vmapped step (its slam_step
+    row by row for the banded matcher) over 6 frames from JAX's
+    bootstrapped states, each frame one step from JAX's states of the
+    frame before (the one-step rule), rvec 1e-4, t 1e-3, equal num_kf.
+
+    These steps predict and track and do not commit (keyframe_match_ratio
+    0), with SlamConfig's 10 motion-BA iterations. The commit is the
+    classical path's, per row, and the tests above hold it; on this world
+    of ~100 map points a commit from equal states can triangulate or cull
+    one weak-depth point differently in the two packages (or in one
+    package under another CPU thread count), which moves the committed
+    pose by up to 1.1e-3 rad, under the classical prediction and on the
+    tree before the predictions came in as well."""
+    cam, seqs = world
+    cfg = tiny_cfg(**{"pose_prediction": "constant_velocity", "motion_ba_iters": 10,
+                      "keyframe_match_ratio": 0.0, **PREDICTION_CASES[case]})
+    jcfg = JaxSlamConfig(**dataclasses.asdict(cfg))
+    jcam = JaxCamera(*cam)
+    mesh, jfrontend, jstates = jax_boot
+    if case == "banded":
+        one = jax.jit(partial(jp.slam_step, cam=jcam, cfg=jcfg, frontend=jfrontend))
+
+        def jstep(st, imgs, keys):
+            outs = [one(jax.tree.map(lambda x, i=i: x[i], st), jnp.asarray(imgs[i]), keys[i],
+                        None)[0] for i in range(2)]
+            return jax.tree.map(lambda *x: np.stack([np.asarray(v) for v in x]), *outs)
+    else:
+        multi = jax_multi_sequence_step(mesh, cam=jcam, cfg=jcfg, frontend=jfrontend)
+
+        def jstep(st, imgs, keys):
+            out = multi(st, imgs[:, None], np.asarray(keys).reshape(2, 1, -1),
+                        np.ones((2, 1), bool), None)[0]
+            return jax.tree.map(np.asarray, out)
+    frontend = ClassicalFrontend(cell=cfg.cell, n_per_cell=cfg.n_per_cell,
+                                 max_distance=cfg.max_match_distance)
+    start = jstates.frame_count.tolist()
+    K = jstates.last_feat.xy.shape[1]
+    key = jax.random.PRNGKey(3)
+    essential = 0
+    for j in range(6):
+        imgs = np.stack([_u8(seqs[i].frames[start[i] + j]) for i in range(2)])
+        key, sub = jax.random.split(key)
+        keys = jax.random.split(sub, 2)
+        uniforms = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+            keys[i], (cfg.ransac_hypotheses, K))) for i in range(2)]))
+        states = stack_states([state_from_numpy(jax.tree.map(lambda x, i=i: x[i], jstates),
+                                                device="cpu") for i in range(2)], device="cpu")
+        jstates = jstep(jstates, imgs, keys)
+        states, info = tp.slam_step_multi(
+            states, torch.from_numpy(imgs), [True, True], None, cam=cam, cfg=cfg,
+            frontend=frontend, uniforms=uniforms, last_inliers=states.last_inliers.tolist())
+        essential += sum(info.essential_prediction)
+        np.testing.assert_allclose(states.last_rvec.numpy(), jstates.last_rvec, atol=1e-4)
+        np.testing.assert_allclose(states.last_t.numpy(), jstates.last_t, atol=1e-3)
+        np.testing.assert_array_equal(states.num_kf.numpy(), jstates.num_kf)
+    assert not any(info.is_keyframe)
+    assert essential == (0 if case == "banded" else 12)
+    assert (info.band_fallbacks is not None) == (case == "banded")
 
 
 def test_step_matches_jax_multi_sequence_step(world):
@@ -261,9 +418,7 @@ def test_lockstep_frame_launches_and_inactive_rows(world, monkeypatch):
     assert int(states.frame_count[0]) == int(before.frame_count[0]) + 1
 
 
-@pytest.mark.parametrize("override", [dict(matcher="lightglue"), dict(matching_backend="banded"),
-                                      dict(pose_prediction="adaptive"),
-                                      dict(essential_matrix_estimation=True), "superpoint"])
+@pytest.mark.parametrize("override", [dict(matcher="lightglue"), "superpoint"])
 def test_configurations_outside_the_step_raise(world, override):
     cam, seqs = world
     kw = {}
@@ -275,7 +430,7 @@ def test_configurations_outside_the_step_raise(world, override):
         cfg = tiny_cfg()
     else:
         cfg = tiny_cfg(**override)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(NotImplementedError, match="slice 7c"):
         MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu", **kw)
 
 

@@ -242,3 +242,23 @@ def test_metrics_and_source_match_jax(rng):
     frames = [rng.uniform(size=(4, 5)).astype(np.float32) for _ in range(3)]
     for a, b in zip(ArraySource(frames), JaxArraySource(frames), strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+def test_rotation_errors_deg_matches_jax(rng):
+    """rotation_errors_deg against the JAX package's on seeded poses (numpy
+    on both sides: 1e-9 degrees), with the first frame's error 0."""
+    from racing_slam_tpu.utils import metrics as jm
+    from racing_slam_tpu_torch.ops import se3
+    from racing_slam_tpu_torch.utils import metrics as tm
+
+    n = 20
+    gt = se3.pose_matrix(torch.from_numpy(rng.normal(0, 0.3, (n, 3))),
+                         torch.from_numpy(rng.normal(0, 2, (n, 3)))).numpy()
+    est = gt.copy()
+    noise = se3.pose_matrix(torch.from_numpy(rng.normal(0, 0.02, (n, 3))),
+                            torch.zeros(n, 3, dtype=torch.float64)).numpy()
+    est = noise @ est
+    got = tm.rotation_errors_deg(est, gt)
+    want = jm.rotation_errors_deg(est, gt)
+    assert got.shape == (n,) and got[0] < 1e-5 and got[1:].max() > 0.1
+    np.testing.assert_allclose(got, want, atol=1e-9)
