@@ -20,13 +20,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      those shapes, each row bit-equal to a launch of the row alone; K5
      batched over S=8 problems at the scale shape, seven whose bands fit
      and one that falls back to K2, with K2 at P=16384 batched with a skip
-     per row and alone, the shapes of multi_scale and scale), with
+     per row and alone, the shapes of multi_scale and scale; K6 batched
+     over S=8 problems at [2400, 4, 32] with different valid shares, one
+     all masked, and over S=3 at a ragged key count, each row bit-equal
+     to a call of the row alone), with
      device times (cuda_ms: CUDA
      events around 25 back-to-back calls queued behind a sleep kernel),
      the least time
      the card could take for the same work (bound_ms) and, for attention,
      one PyTorch call computing the same function (library_ms);
-     SuperPoint on the card against the same network on the CPU;
+     SuperPoint on the card against the same network on the CPU, and its
+     extraction over the multi worlds' eight frames bit-equal to each
+     frame's own;
   4. five paths, each Slam.initialize() + run_batched(batch=48) with the
      launch counters set to 0 just before and read just after. On the
      304-frame bench world of seed 3 (640x480), with local_ba_window=1 and
@@ -69,7 +74,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      fallbacks; each row bit-equal to its own Slam after every lockstep
      frame (one_by_one) with the Slam's ATE, and ATE <= 10 % and coverage
      >= 0.85 for every row of multi_scale and the median row of the
-     prediction paths. `dist`: a
+     prediction paths. Since slice 7c the same for `multi_learned`
+     (SuperPoint, LightGlue on lightglue_superpoint.npz, constant velocity:
+     no K1 and no batched K6 a lockstep frame) and
+     `multi_lightglue_essential` (the classical frontend, LightGlue on
+     lightglue.npz, the essential prediction every frame: eight K6 calls
+     a lockstep frame, one for all rows at each attention site), gated on
+     the median row. `dist`: a
      world of one over NCCL (FileStore): distributed_full_ba at the
      refinement shape bit-equal to full_ba, and MultiSlam on the mesh with
      a landmark-sharded refinement every batch, its costs printed;
@@ -1044,6 +1055,29 @@ def _k6_compare(k, q, kk, v, mask, chunks, name: str) -> float:
     return e
 
 
+def _k6_bound(q, kk, v, mask) -> dict:
+    """bound() of K6 on these inputs ([Kq, H, dh] or a leading S), counted
+    over the keys each problem needs. A masked key's weight is
+    exp(-1e9 - m) = 0 exactly when any key is valid, so a problem with n
+    valid keys reads q, the mask and those n keys' k and v, does n exps and
+    4 n dh bf16 flops a query and head, and writes its f32 output. A
+    problem with every key masked attends uniformly: its output is the
+    mean of v over all keys, so it reads v and the mask and writes the
+    output (its adds, Kk H dh, are left out)."""
+    if q.dim() == 3:
+        q, kk, v, mask = q[None], kk[None], v[None], mask[None]
+    S, Kq, H, dh = q.shape
+    Kk = kk.shape[1]
+    q_bytes = Kq * H * dh * q.element_size()
+    key_bytes = H * dh * (kk.element_size() + v.element_size())  # one key's k and v
+    n_bytes = exps = 0
+    for n in mask.sum(-1).tolist():
+        n_bytes += Kk * mask.element_size() + q_bytes  # the mask, the output
+        n_bytes += q_bytes + n * key_bytes if n else Kk * H * dh * v.element_size()
+        exps += n * Kq * H
+    return bound(n_bytes, {"bf16": 4 * exps * dh, "exp": exps})
+
+
 def _k6_times(k, q, kk, v, mask) -> dict:
     """K6's, its twin's and torch's scaled_dot_product_attention's device
     times on one problem (the library call in bf16 with an additive -1e9
@@ -1059,10 +1093,7 @@ def _k6_times(k, q, kk, v, mask) -> dict:
     log(f"K6 [{q.shape[0]}, {kk.shape[0]}] vs scaled_dot_product_attention (bf16): max abs diff "
         f"{float((lib.float() - k.flash_mha(q, kk, v, mask)).abs().max()):.3e}")
     library = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add))
-    (Kq, H, dh), Kk = q.shape, kk.shape[0]
-    return dict(ms=ms, plain_ms=plain, library_ms=library,
-                **bound(nbytes(q, kk, v, mask) + nbytes(q),  # inputs + the f32 output
-                        {"bf16": 4 * Kq * Kk * H * dh, "exp": Kq * Kk * H}))
+    return dict(ms=ms, plain_ms=plain, library_ms=library, **_k6_bound(q, kk, v, mask))
 
 
 def check_attention(dev) -> dict:
@@ -1175,6 +1206,70 @@ def time_schur_solvers(dev) -> dict:
     return out
 
 
+# Valid shares of the keys of K6 [S=8]'s rows (row 7: every key masked).
+K6_BATCHED_VALID = (0.95, 0.9, 0.8, 0.7, 0.5, 0.3, 0.1, 0.0)
+
+
+def check_attention_batched(dev) -> dict:
+    """K6 over S=8 problems in one call (three launches), LightGlue's
+    attention over the 8 frame pairs of a lockstep frame: q, k, v
+    [8, 2400, 4, 32], each row with its own data and valid share
+    (K6_BATCHED_VALID, row 7 all masked); then S=3 at a ragged key count
+    (2333). Each row must equal a call on that row alone to the bit (the
+    batched call splits the keys as one row's call does), and the batched
+    twin (row by row) by check_attention's rule, per row (5 % of that
+    row's twin output RMS). Times: the batched call, the S single calls
+    back to back, the batched twin, and torch's scaled_dot_product_attention
+    over the batch in bf16 with an additive -1e9 float mask (library_ms;
+    the port never calls it). Bound: _k6_bound, over each row's own valid
+    keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from racing_slam_tpu_torch.ops.kernels import attention as k
+
+    rng = np.random.default_rng(19)
+    H, dh = 4, 32
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    err = 0.0
+    for Kq, Kk, valid in ((2400, 2400, K6_BATCHED_VALID), (2400, 2333, (0.8, 0.0, 0.5))):
+        S = len(valid)
+        q, kk, v = [t(rng.normal(size=(S, n, H, dh)).astype(np.float32)) for n in (Kq, Kk, Kk)]
+        mask = t(np.stack([rng.random(Kk) < f for f in valid]))
+        before = (k.launches, k.batched_launches)
+        got = k.flash_mha(q, kk, v, mask)
+        assert (k.launches, k.batched_launches) == (before[0] + 1, before[1] + 1), \
+            "K6 batched: not one call"
+        want = k.flash_mha_reference(q, kk, v, mask)
+        for i in range(S):
+            one = k.flash_mha(q[i], kk[i], v[i], mask[i])
+            assert torch.equal(got[i], one), f"K6 batched [{Kq}, {Kk}] row {i} != single"
+            e = float((got[i] - want[i]).abs().max())
+            tol = 0.05 * float(want[i].pow(2).mean().sqrt())
+            assert torch.isfinite(got[i]).all() and e <= tol, \
+                f"K6 batched [{Kq}, {Kk}] row {i}: max abs err {e} > {tol}"
+            err = max(err, e)
+        log(f"K6 batched S={S} [{Kq}, {Kk}], valid shares {list(valid)}, "
+            f"{k.default_chunks(Kq, Kk, H)} key chunks a row: rows bit-equal to single calls, "
+            f"max abs err {err:.3e}")
+        if Kk == 2400:
+            args = (q, kk, v, mask)
+    q, kk, v, mask = args
+    S = q.shape[0]
+    ms = cuda_ms(lambda: k.flash_mha(q, kk, v, mask))
+    singles = cuda_ms(lambda: [k.flash_mha(q[i], kk[i], v[i], mask[i]) for i in range(S)])
+    plain = cuda_ms(lambda: k.flash_mha_reference(q, kk, v, mask), n=3, rounds=1)
+    qb, kb, vb = [x.to(torch.bfloat16).permute(0, 2, 1, 3) for x in (q, kk, v)]
+    add = torch.where(mask, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :]
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=add))
+    log(f"K6 batched S={S}: one call {ms:.4f} ms, {S} single calls {singles:.4f} ms, "
+        f"scaled_dot_product_attention (bf16) {library:.4f} ms")
+    return dict(name=f"flash_mha[S={S}]", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=library, singles_ms=singles, **_k6_bound(q, kk, v, mask),
+                source="racing_slam_tpu_torch/csrc/attention_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/attention_kernel.py:88")
+
+
 def superpoint_frontend(dev):
     from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
 
@@ -1224,6 +1319,31 @@ def check_superpoint(frame: np.ndarray, dev) -> dict:
     res = dict(gflop=flops / 1e9, conv_ms=conv_ms, extract_ms=extract_ms,
                bound_ms_bf16=1e3 * flops / PEAK_OPS_S["bf16"], bound_ms_tf32=1e3 * flops / 495e12)
     log("superpoint: " + json.dumps(res))
+    return res
+
+
+def check_superpoint_batched(frames: list, dev) -> dict:
+    """SuperPoint's extraction over S=8 frames, multi_learned's lockstep
+    shape: frame 1 of each of the eight multi worlds as [8, 480, 640]
+    against each frame's own extract (the committed weights): every field
+    of Features equal to the bit. The network runs a frame at a time
+    (cuDNN picks its convolution algorithm by batch shape), the softmax,
+    selection, sampling and normalisation over the stack. Times: the batched extraction and the
+    eight single ones back to back (cuda_ms)."""
+    import torch
+
+    fe = superpoint_frontend(dev)
+    imgs = torch.from_numpy(np.stack(frames).astype(np.float32) / 255.0).to(dev)
+    got = fe.extract(imgs)
+    for i in range(len(frames)):
+        one = fe.extract(imgs[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(got, one)), \
+            f"SuperPoint batched frame {i} != the frame alone"
+    ms = cuda_ms(lambda: fe.extract(imgs), n=5)
+    singles = cuda_ms(lambda: [fe.extract(x) for x in imgs], n=5)
+    res = dict(frames=len(frames), convolutions="frame by frame", extract_ms=ms,
+               singles_ms=singles, keypoints_valid=got.valid.sum(-1).tolist())
+    log("superpoint batched, frames bit-equal to single extractions: " + json.dumps(res))
     return res
 
 
@@ -1391,6 +1511,14 @@ def run_forced_adaptive(dev, cam, frames: list, gt: np.ndarray) -> dict:
     return res
 
 
+def _synchronising(w) -> bool:
+    """Whether a caught warning is torch.cuda's sync debug mode flagging a
+    synchronising call (not the notice it gives once a process when the
+    mode is first set, which names the mode)."""
+    msg = str(w.message)
+    return "synchroniz" in msg and "debug mode" not in msg
+
+
 def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
              profile_frames: int = 0, slam_seed: int = 0) -> dict:
     import torch
@@ -1402,8 +1530,7 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
     cfg = path_config(path)
     frontend = superpoint_frontend(dev) if frontend_kind == "superpoint" else None
     slam = Slam(cam, ArraySource(frames), cfg, frontend=frontend, device=dev, seed=slam_seed)
-    for kern in kernels:
-        kern["module"].launches = 0
+    _zero_counts(kernels)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1420,7 +1547,7 @@ def run_path(path: str, dev, kernels: list, cam, frames: list, gt: np.ndarray,
     fallbacks = slam.banded_fallbacks() if cfg.matching_backend == "banded" else None
     kfs = slam.state.kfs
     kp_valid = kfs.kp_valid.sum(dim=1)[kfs.valid].cpu().numpy()  # valid keypoints a keyframe
-    flagged = [w for w in caught if "synchroniz" in str(w.message)]
+    flagged = [w for w in caught if _synchronising(w)]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
     log(f"{path}: synchronising calls flagged by torch.cuda sync debug mode: {len(flagged)}, "
         f"by source line: {dict(sources.most_common(8))}")
@@ -1477,34 +1604,84 @@ MULTI_FRAMES = 98
 DIST_FRAMES = 32  # the dist phase's MultiSlam run, with a refinement every batch of 16
 
 
-# The multi paths: MultiSlam over the eight worlds under the classical
-# configuration and, since slice 7b, under the essential-matrix and adaptive
-# predictions and on the scale path's banded matcher (refine_every_frames=0:
+# The multi paths: MultiSlam over the eight worlds, as (the single path whose
+# configuration and frontend it takes, overrides): the classical
+# configuration and, since slice 7b, the essential-matrix and adaptive
+# predictions and the scale path's banded matcher (refine_every_frames=0:
 # MultiSlam refines by its own refine_every, so its rows are held to Slam
-# runs without the periodic refinement).
+# runs without the periodic refinement); since slice 7c the learned path
+# (SuperPoint, LightGlue) and the `lightglue` path under the essential
+# prediction (LightGlue over the rows every lockstep frame).
 MULTI_PATHS = {
-    "multi": dict(),
-    "multi_essential": dict(essential_matrix_estimation=True),
-    "multi_adaptive": dict(pose_prediction="adaptive"),
-    "multi_scale": dict(SCALE, refine_every_frames=0),
+    "multi": ("classical", {}),
+    "multi_essential": ("classical", dict(essential_matrix_estimation=True)),
+    "multi_adaptive": ("classical", dict(pose_prediction="adaptive")),
+    "multi_scale": ("classical", dict(SCALE, refine_every_frames=0)),
+    "multi_learned": ("learned", {}),
+    "multi_lightglue_essential": ("lightglue", dict(essential_matrix_estimation=True)),
 }
 # Synchronising calls of one RANSAC (ops/ransac.estimate_relative_pose):
 # the host checks of its eigen and SVD solvers (11 calls), 17 on the H100
 # for an essential-path Slam frame and for each row of a lockstep frame
 # that takes the essential prediction (PERF.md section 6).
 RANSAC_SOLVER_SYNCS = 17
-# The kernels a lockstep frame launches batched, and how often.
-LOCKSTEP = {"corner_frontend_fused": 1, "guided_match_stage1": 2, "motion_ba_lm": 2}
+# The kernels a lockstep frame launches batched (K6's batched calls are
+# counted by its own counter).
+LOCKSTEP = ("corner_frontend_fused", "guided_match_stage1", "motion_ba_lm")
+# LightGlue's attention sites: 2 layers x (self 0, self 1, cross 01, cross 10).
+LIGHTGLUE_SITES = 8
 
 
 def multi_config(path: str, **extra):
-    """bench.py's classical configuration (path_config) with the multi
-    path's overrides."""
-    return path_config("classical", **{**MULTI_PATHS[path], **extra})
+    """The configuration of the multi path's single path (path_config) with
+    the multi path's overrides."""
+    base, overrides = MULTI_PATHS[path]
+    return path_config(base, **{**overrides, **extra})
+
+
+def _superpoint_path(path: str) -> bool:
+    """Whether the multi path runs the SuperPoint frontend."""
+    return PATHS[MULTI_PATHS[path][0]][0] == "superpoint"
+
+
+def multi_frontend(path: str, dev):
+    """The multi path's frontend: SuperPoint on the committed weights for
+    the learned one, else None (MultiSlam's classical frontend)."""
+    return superpoint_frontend(dev) if _superpoint_path(path) else None
+
+
+def lockstep_launches(path: str) -> dict:
+    """The launches a lockstep frame of the multi path makes for all its
+    rows at once, by kernel: K1 once (none under SuperPoint), K2 and K3
+    twice (and K5 twice on the banded matcher); LightGlue's K6 once a
+    site when every row takes the essential prediction, none when no row
+    does (adaptive's share depends on the data)."""
+    cfg = multi_config(path)
+    want = {"corner_frontend_fused": int(not _superpoint_path(path)),
+            "guided_match_stage1": 2, "motion_ba_lm": 2}
+    if cfg.matching_backend == "banded":
+        want["guided_match_stage1_banded"] = 2
+    if cfg.matcher == "lightglue" and cfg.pose_prediction != "adaptive":
+        want["flash_mha"] = LIGHTGLUE_SITES * int(cfg.essential_matrix_estimation)
+    return want
+
+
+def _zero_counts(kernels: list) -> None:
+    """Every kernel's launch counters to 0 (K6's batched calls too)."""
+    for kern in kernels:
+        kern["module"].launches = 0
+        if hasattr(kern["module"], "batched_launches"):
+            kern["module"].batched_launches = 0
 
 
 def _launch_counts(kernels: list) -> dict:
     return {kern["module"].__name__: kern["module"].launches for kern in kernels}
+
+
+def _batched_counts(kernels: list) -> dict:
+    """{module name: calls with a leading S} of the kernels that count them (K6)."""
+    return {kern["module"].__name__: kern["module"].batched_launches for kern in kernels
+            if hasattr(kern["module"], "batched_launches")}
 
 
 def _kernel_names(kernels: list) -> dict:
@@ -1514,16 +1691,18 @@ def _kernel_names(kernels: list) -> dict:
 
 
 def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
-    """MultiSlam over the S=8 worlds on the multi path's configuration:
-    bootstrap per sequence, then run_batched to the end of the worlds
-    under torch.cuda's sync debug mode. Asserted: one K1, two K2 and two K3
-    launches a lockstep frame (and two K5 on the banded matcher), each for
+    """MultiSlam over the S=8 worlds on the multi path's configuration and
+    frontend: bootstrap per sequence, then run_batched to the end of the
+    worlds under torch.cuda's sync debug mode. Asserted: the launches of
+    lockstep_launches a lockstep frame (one K1, two K2 and two K3, two K5
+    on the banded matcher, no K1 under SuperPoint, eight K6 calls where
+    every row takes the essential prediction under LightGlue), each for
     all 8 rows, and, under torch.cuda's sync debug mode, one synchronising
     call a lockstep frame besides the essential prediction's solver checks
     (at most RANSAC_SOLVER_SYNCS a row that takes it); a re-bootstrap's own
     are counted apart. The launches of the
     lockstep frames (batched) and of the bootstraps, re-bootstraps and
-    per-row commit BAs (single) are counted apart. Per row: ATE, coverage,
+    per-row commits (K4, LightGlue's K6: single) are counted apart. Per row: ATE, coverage,
     re-inits, rotation error (utils.metrics.rotation_errors_deg over each
     segment's keyframes), frames on the essential prediction and banded
     fallbacks. Returns (the run's record, the MultiSlam)."""
@@ -1536,17 +1715,16 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     cfg = multi_config(path)
     frames = [w[0] for w in worlds]
     names = _kernel_names(kernels)
-    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, device=dev)
-    for kern in kernels:
-        kern["module"].launches = 0
+    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg,
+                   frontend=multi_frontend(path, dev), device=dev)
+    _zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.time()
     assert ms.initialize(), f"{path}: bootstrap failed"
     torch.cuda.synchronize()
     t_init = time.time() - t0
     single = Counter(_launch_counts(kernels))
-    for kern in kernels:
-        kern["module"].launches = 0
+    _zero_counts(kernels)
     # A re-bootstrap inside the run launches single-frame kernels: counted apart.
     reinit = Counter()
     run_reinit = ms._reinit_sequence
@@ -1570,22 +1748,24 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
         torch.cuda.set_sync_debug_mode("default")
     ms._reinit_sequence = run_reinit
     flagged = [w for w in caught
-               if "synchroniz" in str(w.message) and id(w) not in reinit_warnings]
+               if _synchronising(w) and id(w) not in reinit_warnings]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
     solver_syncs = sum(c for src, c in sources.items() if src.startswith("essential.py"))
     run = Counter(_launch_counts(kernels))
+    batched_calls = _batched_counts(kernels)
     lockstep, single_run = Counter(), Counter(single)
     for m, c in run.items():
         base = names[m]
+        if m in batched_calls:  # K6: its batched calls are the lockstep frames'
+            lockstep[base] += batched_calls[m]
+            single_run[m] += c - batched_calls[m]
+            continue
         batched = base in LOCKSTEP or base == "guided_match_stage1_banded"
         lockstep[base] += (c - reinit[m]) if batched else 0
         single_run[m] += reinit[m] if batched else c
     single_launches = {names[m]: c for m, c in single_run.items()}
-    per_frame = {k: lockstep[k] / max(n, 1) for k in LOCKSTEP}
-    want = dict(LOCKSTEP)
-    if cfg.matching_backend == "banded":
-        per_frame["guided_match_stage1_banded"] = lockstep["guided_match_stage1_banded"] / max(n, 1)
-        want["guided_match_stage1_banded"] = 2
+    want = lockstep_launches(path)
+    per_frame = {k: lockstep[k] / max(n, 1) for k in want}
     fallbacks = ms.banded_fallbacks()
     seqs = []
     for i, (f, gt) in enumerate(worlds):
@@ -1644,7 +1824,7 @@ def _profile_multi(path: str, dev, cam, frames: list, profile_frames: int) -> di
     from racing_slam_tpu_torch.utils.video import ArraySource
 
     prof_ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, multi_config(path),
-                        device=dev)
+                        frontend=multi_frontend(path, dev), device=dev)
     assert prof_ms.initialize()
     torch.cuda.synchronize()
     prof = dict(path=path, frames=profile_frames, sequences=len(frames), **profile_run(
@@ -1686,20 +1866,24 @@ def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) ->
 
 def run_multi_path(path: str, dev, kernels: list, cam, worlds: list,
                    profile_frames: int = 0) -> dict:
-    """A multi path of slice 7b (multi_essential, multi_adaptive,
-    multi_scale): _multi_run, then one_by_one on its configuration with
+    """A multi path past `multi` (multi_essential, multi_adaptive,
+    multi_scale, multi_learned, multi_lightglue_essential): _multi_run,
+    then one_by_one on its configuration and frontend with
     re-initialisation off (a Slam stepped a frame a call runs no loss
     check, MultiSlam's lockstep one does: the rows are held to their Slam
-    on tracking alone). Asserted: every row bit-equal to its Slam after
-    every lockstep frame, each row's ATE there equal to its Slam's, and
+    on tracking alone), to the end of the worlds. Asserted: every row
+    bit-equal to its Slam after every lockstep frame, each row's ATE there
+    equal to its Slam's, and
     ATE <= 10 % and coverage >= 0.85 of the batched run for every row of
-    multi_scale and for the median row of the prediction paths (adaptive
-    drifts to 7-19 % on world 5 in both packages). Printed beside them:
+    multi_scale and for the median row of the others (adaptive drifts to
+    7-19 % on world 5 in both packages, and world 5 drifts on the classical
+    path too). Printed beside them:
     synchronising calls a lockstep frame and a Slam frame of the same
     configuration (sync debug mode)."""
     res, ms = _multi_run(path, dev, kernels, cam, worlds)
     _gate_rows(path, res["sequences_acc"], "every" if path == "multi_scale" else "median")
-    obo = one_by_one(dev, cam, worlds, multi_config(path, reinit_on_lost=False), path, None)
+    obo = one_by_one(dev, cam, worlds, multi_config(path, reinit_on_lost=False), path, None,
+                     frontend=multi_frontend(path, dev))
     res["one_by_one"] = obo
     assert obo["rows_bit_equal_to_the_end"] == len(worlds), (path, obo["first_departure"])
     assert obo["multi_ate_pct"] == obo["slam_ate_pct"], (path, obo)
@@ -1712,10 +1896,11 @@ def run_multi_path(path: str, dev, kernels: list, cam, worlds: list,
 
 
 def one_by_one(dev, cam, worlds: list, cfg, label: str, batched_rows: list | None,
-               max_frames: int | None = None) -> dict:
+               frontend=None) -> dict:
     """MultiSlam over the worlds against each world through its own Slam
-    (row i's seed is i, as MultiSlam seeds it), on `cfg`, both stepped a
-    frame at a time (`max_frames` lockstep frames, or to the end). Per
+    (row i's seed is i, as MultiSlam seeds it), on `cfg` and `frontend`
+    (None: the classical one), both stepped a frame at a time to the end
+    of the worlds. Per
     row: the first lockstep frame after which any leaf of its state
     differs from its Slam's (-1: the bootstrap; None: never), with the
     leaves that differ and the pose difference then. At the end: the
@@ -1738,14 +1923,16 @@ def one_by_one(dev, cam, worlds: list, cfg, label: str, batched_rows: list | Non
 
     t0 = time.time()
     frames = [w[0] for w in worlds]
-    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, device=dev)
+    ms = MultiSlam(cam, [ArraySource(f) for f in frames], None, cfg, frontend=frontend,
+                   device=dev)
     assert ms.initialize(), "one by one: MultiSlam bootstrap failed"
-    slams = [Slam(cam, ArraySource(f), cfg, seed=i, device=dev) for i, f in enumerate(frames)]
+    slams = [Slam(cam, ArraySource(f), cfg, seed=i, frontend=frontend, device=dev)
+             for i, f in enumerate(frames)]
     assert all([sl.initialize() for sl in slams]), "one by one: Slam bootstrap failed"
     first: list = [None] * len(frames)
     j = -1
     slam_frames = flagged = 0
-    while max_frames is None or j + 1 < max_frames:
+    while True:
         for i, sl in enumerate(slams):
             row = state_row(ms.states, i)
             if first[i] is None and (d := differing(row, sl.state)):
@@ -1760,7 +1947,7 @@ def one_by_one(dev, cam, worlds: list, cfg, label: str, batched_rows: list | Non
             for sl in slams:
                 slam_frames += sl.run_batched(max_frames=1, batch=1)
             torch.cuda.set_sync_debug_mode("default")
-        flagged += sum("synchroniz" in str(w.message) for w in caught)
+        flagged += sum(_synchronising(w) for w in caught)
         j += 1
     d_r = d_t = 0.0
     same_kf = 0
@@ -2087,8 +2274,7 @@ def run_train(dev, kernels: list) -> dict:
     argv = ["--which", "both", "--steps", str(TRAIN_STEPS), "--sp-steps", str(TRAIN_STEPS),
             "--out", str(out)]
     torch.cuda.reset_peak_memory_stats(dev)
-    for kern in kernels:
-        kern["module"].launches = 0
+    _zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.time()
     report = train.main(argv)
@@ -2169,9 +2355,10 @@ def main() -> int:
     b256 = check_match_batched(dev, D=256)
     batched[0]["d256"] = {key: b256[key] for key in ("max_abs_err", "ms", "singles_ms", "plain_ms",
                                                      "bound_ms")}
+    batched.append(dict(b256, name=f"guided_match_stage1[S={MULTI_S},D=256]"))
     k5_batched, k2_batched_scale, k2_scale = check_match_banded_batched(dev)
     kernels.append(k2_scale)
-    batched += [k5_batched, k2_batched_scale]
+    batched += [k5_batched, k2_batched_scale, check_attention_batched(dev)]
     rendered = pending.get()
     pool.close()
     pool.join()
@@ -2186,6 +2373,7 @@ def main() -> int:
         log(f"{kern['name']}: kernel {kern['ms']:.4f} ms, plain PyTorch {kern['plain_ms']:.4f} ms, "
             f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), library {kern['library_ms']}")
     check_superpoint(frames[1], dev)
+    check_superpoint_batched([w[0][1] for w in multi_worlds], dev)
     time_schur_solvers(dev)
 
     runs = {path: run_path(path, dev, kernels, cam, *world[PATHS[path][2]], args.profile)
@@ -2193,8 +2381,9 @@ def main() -> int:
     if runs["adaptive"]["essential_predictions"] == 0:
         run_forced_adaptive(dev, cam, *world[N_FRAMES])
     multi = {"multi": run_multi(dev, kernels, cam, multi_worlds, args.profile)}
-    for path in ("multi_essential", "multi_adaptive", "multi_scale"):
-        multi[path] = run_multi_path(path, dev, kernels, cam, multi_worlds, args.profile)
+    for path in MULTI_PATHS:
+        if path != "multi":
+            multi[path] = run_multi_path(path, dev, kernels, cam, multi_worlds, args.profile)
     run_dist(dev, cam, multi_worlds)
     run_cli()
     train_checks = check_train(dev)
@@ -2208,15 +2397,18 @@ def main() -> int:
     # Each row counts the launches made at its own shape. The single paths'
     # K2 calls: P=4096 at D=128 (bench.py's paths), D=256 (learned), P=16384
     # with the band's skip flag (scale). The multi paths' lockstep frames go
-    # to the [S=8] rows (K2 at P=16384 for multi_scale), their bootstraps,
-    # re-bootstraps and per-row commit BAs (K1 and K4 at the single shapes)
-    # to the single rows.
+    # to the [S=8] rows (K2 at D=256 for multi_learned, at P=16384 for
+    # multi_scale; K6's batched calls), their bootstraps, re-bootstraps and
+    # per-row commits (K1, K4 and LightGlue's K6 at the single shapes) to
+    # the single rows.
     k2_paths = {"guided_match_stage1": ("classical", "lightglue", "headline", "adaptive",
                                         "essential"),
                 "guided_match_stage1[D=256]": ("learned",),
                 "guided_match_stage1[P=16384]": ("scale",)}
     batched_paths = {f"guided_match_stage1[S={MULTI_S}]": ("multi", "multi_essential",
-                                                           "multi_adaptive"),
+                                                           "multi_adaptive",
+                                                           "multi_lightglue_essential"),
+                     f"guided_match_stage1[S={MULTI_S},D=256]": ("multi_learned",),
                      f"guided_match_stage1[S={MULTI_S},P=16384]": ("multi_scale",)}
     for kern in kernels + batched:
         base = kern["name"].split("[")[0]

@@ -9,8 +9,15 @@
 // float32; p is rounded to bf16 before the p.v product, the denominator
 // sums the unrounded p. Query masking is the caller's.
 //
-// Layout: q [Kq, H, dh], k and v [Kk, H, dh] float32, mask [Kk] uint8,
-// out [Kq, H, dh] float32; dh in {16, 32, 64}.
+// Layout: q [S, Kq, H, dh], k and v [S, Kk, H, dh] float32, mask [S, Kk]
+// uint8, out [S, Kq, H, dh] float32; dh in {16, 32, 64}. S independent
+// problems of one shape (LightGlue over the S frame pairs of a lockstep
+// frame; S = 1 for one pair) share each of the three launches: the
+// problem is a coordinate of every grid (blockIdx.y of the pre-pass and
+// the combine, blockIdx.z / chunks of the main kernel), and each problem
+// has a workspace of its own. A problem's CTAs do exactly the work, in
+// the same order, that they do when it runs alone with the same `chunks`,
+// so each problem's output equals the single launch's to the bit.
 //
 // What bounds it on an H100 at the main path's [2400, 4, 32]: the exp of
 // every logit, 23 M per call on the special-function units (~5.5 us),
@@ -41,7 +48,8 @@
 //    chunk order, O / l written in the [Kq, H, dh] layout.
 //
 // The split is the wrapper's choice (ops/kernels/attention.py): enough
-// chunks that every SM holds several CTAs at once. A consumer on ldmatrix
+// chunks that every SM holds several CTAs at once for ONE problem, the
+// same for S problems, since the split sets the order of the combine. A consumer on ldmatrix
 // + mma.sync over the same ring, tiles and split measured slower than
 // wgmma at dh = 32 (PERF.md) and was not kept.
 #include <cuda_bf16.h>
@@ -217,22 +225,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Sizes of one call's buffers, in the order the workspace holds them.
+// Sizes of one problem's buffers, in the order its workspace holds them
+// (a multiple of 1024 bytes, so that every problem's tiles stay aligned).
 struct Plan {
   int qt, kt, tpc, chunks;
   size_t qb, kb, vt, madd, o_part, ml;  // bytes
-  __host__ Plan(int Kq, int Kk, int H, int dh, int S) {
+  __host__ Plan(int Kq, int Kk, int H, int dh, int n_chunks) {
     qt = (Kq + TQ - 1) / TQ;
     const int n_tiles = (Kk + TK - 1) / TK;
-    tpc = (n_tiles + S - 1) / S;
-    chunks = S;
-    kt = S * tpc;
+    tpc = (n_tiles + n_chunks - 1) / n_chunks;
+    chunks = n_chunks;
+    kt = n_chunks * tpc;
     qb = round_up((size_t)H * qt * TQ * dh * 2, 1024);
     kb = round_up((size_t)H * kt * TK * dh * 2, 1024);
     vt = kb;
     madd = round_up((size_t)kt * TK * 4, 1024);
-    o_part = round_up((size_t)S * H * qt * TQ * dh * 4, 1024);
-    ml = round_up((size_t)S * H * qt * TQ * 8, 1024);
+    o_part = round_up((size_t)n_chunks * H * qt * TQ * dh * 4, 1024);
+    ml = round_up((size_t)n_chunks * H * qt * TQ * 8, 1024);
   }
   size_t total() const { return qb + kb + vt + madd + o_part + ml; }
 };
@@ -244,9 +253,19 @@ __global__ void __launch_bounds__(256)
 flash_prepass(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const uint8_t* __restrict__ mask_k,
               uint8_t* __restrict__ qb, uint8_t* __restrict__ kb, uint8_t* __restrict__ vt,
-              float* __restrict__ madd, int Kq, int Kk, int H, int qt, int kt) {
+              float* __restrict__ madd, int Kq, int Kk, int H, int qt, int kt,
+              size_t ws_stride) {
   constexpr int W = DH * 2;  // bytes of a q / k tile row
   constexpr int CH = DH / 8;  // 16-byte chunks of a row
+  const int seq = blockIdx.y;  // the problem; its operands and workspace
+  q += (size_t)seq * Kq * H * DH;
+  k += (size_t)seq * Kk * H * DH;
+  v += (size_t)seq * Kk * H * DH;
+  mask_k += (size_t)seq * Kk;
+  qb += seq * ws_stride;
+  kb += seq * ws_stride;
+  vt += seq * ws_stride;
+  madd = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(madd) + seq * ws_stride);
   const long long nq = (long long)qt * TQ * H * CH;
   const long long nk = (long long)kt * TK * H * CH;
   const long long nv = (long long)kt * (TK / 8) * H * DH;
@@ -302,7 +321,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_main(const uint8_t* __restrict__ qb, const uint8_t* __restrict__ kb,
            const uint8_t* __restrict__ vt, const float* __restrict__ madd,
            float* __restrict__ o_part, float2* __restrict__ ml_part, int qt, int kt, int tpc,
-           int H, float c) {
+           int H, int chunks, size_t ws_stride, float c) {
   constexpr int W = DH * 2;
   constexpr uint32_t Q_BYTES = TQ * W, K_BYTES = TK * W, V_BYTES = DH * TK * 2, M_BYTES = TK * 4;
   constexpr uint32_t Q_OFF = 0;
@@ -318,8 +337,15 @@ flash_main(const uint8_t* __restrict__ qb, const uint8_t* __restrict__ kb,
   const uint32_t full = base + BAR_OFF;               // STAGES barriers
   const uint32_t empty = full + 8 * STAGES;           // STAGES barriers
   const uint32_t q_full = empty + 8 * STAGES;
-  const int qtile = blockIdx.x, h = blockIdx.y, chunk = blockIdx.z;
+  const int qtile = blockIdx.x, h = blockIdx.y;
+  const int seq = blockIdx.z / chunks, chunk = blockIdx.z % chunks;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  qb += seq * ws_stride;
+  kb += seq * ws_stride;
+  vt += seq * ws_stride;
+  madd = reinterpret_cast<const float*>(reinterpret_cast<const uint8_t*>(madd) + seq * ws_stride);
+  o_part = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(o_part) + seq * ws_stride);
+  ml_part = reinterpret_cast<float2*>(reinterpret_cast<uint8_t*>(ml_part) + seq * ws_stride);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -459,10 +485,16 @@ flash_main(const uint8_t* __restrict__ qb, const uint8_t* __restrict__ kb,
 template <int DH>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ o_part, const float2* __restrict__ ml_part,
-              float* __restrict__ out, int Kq, int H, int qt, int chunks) {
+              float* __restrict__ out, int Kq, int H, int qt, int chunks, size_t ws_stride) {
   const long long n = (long long)Kq * H * (DH / 4);
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int seq = blockIdx.y;
+  o_part = reinterpret_cast<const float*>(reinterpret_cast<const uint8_t*>(o_part) +
+                                          seq * ws_stride);
+  ml_part = reinterpret_cast<const float2*>(reinterpret_cast<const uint8_t*>(ml_part) +
+                                            seq * ws_stride);
+  out += (size_t)seq * Kq * H * DH;
   const int c4 = (int)(i % (DH / 4));
   const int h = (int)((i / (DH / 4)) % H);
   const int qi = (int)(i / (DH / 4) / H);
@@ -494,8 +526,10 @@ constexpr uint32_t main_smem_bytes() {
 
 template <int DH>
 int launch(const float* q, const float* k, const float* v, const uint8_t* mask_k, float* out,
-           uint8_t* ws, int Kq, int Kk, int H, int chunks, float scale, cudaStream_t stream) {
+           uint8_t* ws, int S, int Kq, int Kk, int H, int chunks, float scale,
+           cudaStream_t stream) {
   const Plan pl(Kq, Kk, H, DH, chunks);
+  const size_t ws_stride = pl.total();  // one problem's workspace
   uint8_t* qb = ws;
   uint8_t* kb = qb + pl.qb;
   uint8_t* vt = kb + pl.kb;
@@ -508,38 +542,41 @@ int launch(const float* q, const float* k, const float* v, const uint8_t* mask_k
   if (attr != cudaSuccess) return (int)attr;
   const long long jobs = (long long)pl.qt * TQ * H * (DH / 8) +
                          2LL * pl.kt * TK * H * (DH / 8) + (long long)pl.kt * TK;
-  const int pre_blocks = (int)std::min<long long>((jobs + 255) / 256, 4096);
-  flash_prepass<DH><<<pre_blocks, 256, 0, stream>>>(q, k, v, mask_k, qb, kb, vt, madd, Kq, Kk,
-                                                     H, pl.qt, pl.kt);
-  flash_main<DH><<<dim3(pl.qt, H, chunks), THREADS, smem, stream>>>(
-      qb, kb, vt, madd, o_part, ml, pl.qt, pl.kt, pl.tpc, H, scale * LOG2E);
+  const int pre_blocks = (int)std::min<long long>((jobs + 255) / 256, std::max(4096 / S, 1));
+  flash_prepass<DH><<<dim3(pre_blocks, S), 256, 0, stream>>>(q, k, v, mask_k, qb, kb, vt, madd,
+                                                             Kq, Kk, H, pl.qt, pl.kt, ws_stride);
+  flash_main<DH><<<dim3(pl.qt, H, S * chunks), THREADS, smem, stream>>>(
+      qb, kb, vt, madd, o_part, ml, pl.qt, pl.kt, pl.tpc, H, chunks, ws_stride, scale * LOG2E);
   const long long n = (long long)Kq * H * (DH / 4);
-  flash_combine<DH><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(o_part, ml, out, Kq, H,
-                                                                     pl.qt, chunks);
+  flash_combine<DH><<<dim3((unsigned)((n + 255) / 256), S), 256, 0, stream>>>(
+      o_part, ml, out, Kq, H, pl.qt, chunks, ws_stride);
   return (int)cudaGetLastError();
 }
 
-bool valid_args(int Kq, int Kk, int H, int dh, int chunks) {
-  return Kq >= 1 && Kk >= 1 && H >= 1 && H <= 65535 && chunks >= 1 && chunks <= 65535 &&
-         (dh == 16 || dh == 32 || dh == 64);
+bool valid_args(int S, int Kq, int Kk, int H, int dh, int chunks) {
+  return S >= 1 && S <= 65535 && Kq >= 1 && Kk >= 1 && H >= 1 && H <= 65535 && chunks >= 1 &&
+         (long long)S * chunks <= 65535 && (dh == 16 || dh == 32 || dh == 64);
 }
 
 }  // namespace
 
-// Bytes of the workspace a call needs (bf16 tiles, mask row, partials).
-SLAM_API size_t slam_flash_mha_workspace_bytes(int Kq, int Kk, int H, int dh, int chunks) {
-  return valid_args(Kq, Kk, H, dh, chunks) ? Plan(Kq, Kk, H, dh, chunks).total() : 0;
+// Bytes of the workspace a call of S problems needs (each problem's bf16
+// tiles, mask row and partials).
+SLAM_API size_t slam_flash_mha_seq_workspace_bytes(int S, int Kq, int Kk, int H, int dh,
+                                                   int chunks) {
+  return valid_args(S, Kq, Kk, H, dh, chunks) ? S * Plan(Kq, Kk, H, dh, chunks).total() : 0;
 }
 
-SLAM_API int slam_flash_mha(const float* q, const float* k, const float* v, const uint8_t* mask_k,
-                            float* out, void* workspace, int Kq, int Kk, int H, int dh,
-                            int chunks, float scale, cudaStream_t stream) {
-  if (!valid_args(Kq, Kk, H, dh, chunks) || workspace == nullptr)
+SLAM_API int slam_flash_mha_seq(const float* q, const float* k, const float* v,
+                                const uint8_t* mask_k, float* out, void* workspace, int S, int Kq,
+                                int Kk, int H, int dh, int chunks, float scale,
+                                cudaStream_t stream) {
+  if (!valid_args(S, Kq, Kk, H, dh, chunks) || workspace == nullptr)
     return (int)cudaErrorInvalidValue;
   uint8_t* ws = static_cast<uint8_t*>(workspace);
   switch (dh) {
-    case 16: return launch<16>(q, k, v, mask_k, out, ws, Kq, Kk, H, chunks, scale, stream);
-    case 32: return launch<32>(q, k, v, mask_k, out, ws, Kq, Kk, H, chunks, scale, stream);
-    default: return launch<64>(q, k, v, mask_k, out, ws, Kq, Kk, H, chunks, scale, stream);
+    case 16: return launch<16>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
+    case 32: return launch<32>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
+    default: return launch<64>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
   }
 }

@@ -7,7 +7,18 @@ assignment with per-token matchability scores the pairs, and `match` takes
 mutual argmaxes above a threshold.
 
 Every attention site goes through kernel K6 (`ops.kernels.attention`): the
-CUDA kernel for CUDA tensors, its plain twin for CPU tensors. K6 has no
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors.
+
+S frame pairs (the lockstep step of S sequences) take a leading S on every
+input, and K6 runs once for all S at each attention site. Each pair's
+result equals its own call's to the bit: every library product, the two
+log-softmaxes, GELU and the sigmoid run one pair at a time, at one pair's
+shapes (`_per_pair`), on every device, and the rest of the elementwise
+work over the stack. A library call's rounding may follow its batch
+shape (cuBLAS picks its kernel by shape; PyTorch's CPU GELU and sigmoid
+round an element by its place in their vector loop), and the port does
+not rely on it for any S. One pair takes exactly the single call's
+route. K6 has no
 backward and raises on operands that require grad; the training losses
 (`models.train`) pass `attn_backend="xla_flash"`, the JAX package's
 training route (its "auto"): float32 attention in plain PyTorch, which
@@ -79,18 +90,33 @@ def init_params(generator: torch.Generator, in_dim: int = 256, dim: int = 256,
                            matchability_w=lin(dim, 1), matchability_b=zeros(1))
 
 
+def _per_pair(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """fn of one pair's [K, ...] operands, or pair by pair over [S, K, ...]
+    operands, stacked: a library call at one pair's shapes, which gives
+    each pair the bits it gets alone."""
+    if xs[0].dim() == 2:
+        return fn(*xs)
+    return torch.stack([fn(*row) for row in zip(*xs)])
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for one pair's [K, Din], or pair by pair for [S, K, Din]."""
+    return _per_pair(lambda xi: xi @ w, x)
+
+
 def _rotary_2d(xy: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [K, dim/2] of the 2-D rotary angles of normalised coords
-    [K, 2]: dim/4 frequencies exp(linspace(0, 4)) * pi on x, the same on y."""
+    """cos/sin [..., K, dim/2] of the 2-D rotary angles of normalised coords
+    [..., K, 2]: dim/4 frequencies exp(linspace(0, 4)) * pi on x, the same
+    on y."""
     freqs = torch.exp(torch.linspace(0.0, 4.0, dim // 4, device=xy.device)) * math.pi
-    ang = torch.cat([xy[:, 0:1] * freqs[None, :], xy[:, 1:2] * freqs[None, :]], dim=-1)
+    ang = torch.cat([xy[..., 0:1] * freqs, xy[..., 1:2] * freqs], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 
 def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate the interleaved feature pairs (0::2, 1::2) of x [K, H, dh]."""
+    """Rotate the interleaved feature pairs (0::2, 1::2) of x [..., K, H, dh]."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
-    c, s = cos[:, None, :], sin[:, None, :]
+    c, s = cos[..., None, :], sin[..., None, :]
     return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
 
 
@@ -111,24 +137,23 @@ def _attention_f32(q, k, v, mask_k):
 
 
 def _mha(q, k, v, mask_q, mask_k, backend: str = "kernel"):
-    """Multi-head attention, masked query rows zeroed: kernel K6, or the
-    differentiable float32 route for `backend="xla_flash"`."""
+    """Multi-head attention, masked query rows zeroed: kernel K6 (one call
+    for S pairs), or the differentiable float32 route for
+    `backend="xla_flash"` (one pair)."""
     msg = flash_mha(q, k, v, mask_k) if backend == "kernel" else _attention_f32(q, k, v, mask_k)
-    return torch.where(mask_q[:, None, None], msg, 0.0)
+    return torch.where(mask_q[..., None, None], msg, 0.0)
 
 
 def _split_heads(x: torch.Tensor) -> torch.Tensor:
-    K, D = x.shape
-    return x.reshape(K, HEADS, D // HEADS)
+    return x.reshape(*x.shape[:-1], HEADS, x.shape[-1] // HEADS)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    K, H, dh = x.shape
-    return x.reshape(K, H * dh)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    return _per_pair(lambda t: F.gelu(t, approximate="tanh"), x)  # jax.nn.gelu's default
 
 
 def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1, backend: str = "kernel"):
@@ -137,22 +162,22 @@ def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1, backend: str = "kernel"
 
     def self_attn(t, cos, sin, m):
         tn = _ln(t)
-        q, k, v = torch.chunk(tn @ p.self_qkv_w, 3, dim=-1)
+        q, k, v = torch.chunk(_mm(tn, p.self_qkv_w), 3, dim=-1)
         q = _apply_rope(_split_heads(q), cos, sin)
         k = _apply_rope(_split_heads(k), cos, sin)
-        msg = _merge_heads(_mha(q, k, _split_heads(v), m, m, backend)) @ p.self_out_w
-        return t + _gelu(torch.cat([tn, _ln(msg)], dim=-1) @ p.self_mlp_w + p.self_mlp_b)
+        msg = _mm(_merge_heads(_mha(q, k, _split_heads(v), m, m, backend)), p.self_out_w)
+        return t + _gelu(_mm(torch.cat([tn, _ln(msg)], dim=-1), p.self_mlp_w) + p.self_mlp_b)
 
     t0 = self_attn(t0, *rope0, m0)
     t1 = self_attn(t1, *rope1, m1)
 
     def cross(ta, tb, ma, mb):
         tan, tbn = _ln(ta), _ln(tb)
-        qa = _split_heads(tan @ p.cross_qk_w)
-        kb = _split_heads(tbn @ p.cross_qk_w)
-        vb = _split_heads(tbn @ p.cross_v_w)
+        qa = _split_heads(_mm(tan, p.cross_qk_w))
+        kb = _split_heads(_mm(tbn, p.cross_qk_w))
+        vb = _split_heads(_mm(tbn, p.cross_v_w))
         msg = _merge_heads(_mha(qa, kb, vb, ma, mb, backend))
-        return ta + _gelu(torch.cat([tan, _ln(msg)], dim=-1) @ p.cross_mlp_w + p.cross_mlp_b)
+        return ta + _gelu(_mm(torch.cat([tan, _ln(msg)], dim=-1), p.cross_mlp_w) + p.cross_mlp_b)
 
     return cross(t0, t1, m0, m1), cross(t1, t0, m1, m0)
 
@@ -160,7 +185,15 @@ def _layer(p: LayerParams, t0, t1, rope0, rope1, m0, m1, backend: str = "kernel"
 def _normalise(xy: torch.Tensor, image_size: tuple[float, float]) -> torch.Tensor:
     w, h = image_size
     s = max(w, h)
-    return torch.stack([(xy[:, 0] - w / 2) / s, (xy[:, 1] - h / 2) / s], dim=-1)
+    return torch.stack([(xy[..., 0] - w / 2) / s, (xy[..., 1] - h / 2) / s], dim=-1)
+
+
+def _log_softmaxes(sim: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row and the column log-softmax of one pair's [K0, K1] scores.
+    The column one as a row softmax of a contiguous transpose: on the card
+    the strided dim-0 softmax of [2400, 2400] took longer than all 8
+    attention sites together."""
+    return torch.log_softmax(sim, dim=1), torch.log_softmax(sim.T.contiguous(), dim=1).T
 
 
 def assignment_scores(
@@ -174,14 +207,17 @@ def assignment_scores(
     image_size: tuple[float, float],
     attn_backend: str = "kernel",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Forward pass -> (scores [K0, K1], matchability0 [K0], matchability1 [K1]).
+    """Forward pass -> (scores [K0, K1], matchability0 [K0], matchability1 [K1]),
+    or [S, ...] each for S pairs given a leading S on every input.
 
     attn_backend: "kernel" (K6, inference: `match` and the pipeline) or
-    "xla_flash" (float32 plain PyTorch with gradients: training)."""
+    "xla_flash" (float32 plain PyTorch with gradients, one pair: training)."""
     if attn_backend not in ATTN_BACKENDS:
         raise ValueError(f"attn_backend must be one of {ATTN_BACKENDS}, got {attn_backend!r}")
-    t0 = desc0 @ params.in_proj_w
-    t1 = desc1 @ params.in_proj_w
+    if desc0.dim() == 3 and attn_backend != "kernel":
+        raise ValueError("S pairs at once take attn_backend='kernel'")
+    t0 = _mm(desc0, params.in_proj_w)
+    t1 = _mm(desc1, params.in_proj_w)
     if params.layers:
         dh = t0.shape[-1] // HEADS
         rope0 = _rotary_2d(_normalise(xy0, image_size), dh)
@@ -189,18 +225,17 @@ def assignment_scores(
         for p in params.layers:
             t0, t1 = _layer(p, t0, t1, rope0, rope1, valid0, valid1, attn_backend)
         t0, t1 = _ln(t0), _ln(t1)
-    z0 = t0 @ params.match_proj_w
-    z1 = t1 @ params.match_proj_w
-    sim = (z0 @ z1.T) / math.sqrt(z0.shape[-1])
-    sim = torch.where(valid0[:, None] & valid1[None, :], sim, -1e9)
-    s01 = torch.log_softmax(sim, dim=1)
-    # The softmax over dim 0 as a row softmax of a contiguous transpose: on
-    # the card the strided dim-0 softmax of [2400, 2400] took longer than
-    # all 8 attention sites together.
-    s10 = torch.log_softmax(sim.T.contiguous(), dim=1).T
-    m0 = torch.sigmoid(t0 @ params.matchability_w + params.matchability_b)[:, 0]
-    m1 = torch.sigmoid(t1 @ params.matchability_w + params.matchability_b)[:, 0]
-    return torch.exp(s01 + s10) * m0[:, None] * m1[None, :], m0, m1
+    z0 = _mm(t0, params.match_proj_w)
+    z1 = _mm(t1, params.match_proj_w)
+    sim = _per_pair(lambda a, b: a @ b.T, z0, z1) / math.sqrt(z0.shape[-1])
+    sim = torch.where(valid0[..., :, None] & valid1[..., None, :], sim, -1e9)
+    if sim.dim() == 2:
+        s01, s10 = _log_softmaxes(sim)
+    else:
+        s01, s10 = _per_pair(lambda x: torch.stack(_log_softmaxes(x)), sim).unbind(1)
+    m0 = _per_pair(torch.sigmoid, _mm(t0, params.matchability_w) + params.matchability_b)[..., 0]
+    m1 = _per_pair(torch.sigmoid, _mm(t1, params.matchability_w) + params.matchability_b)[..., 0]
+    return torch.exp(s01 + s10) * m0[..., :, None] * m1[..., None, :], m0, m1
 
 
 def match(
@@ -215,14 +250,20 @@ def match(
     threshold: float = 0.1,
 ) -> FrameMatches:
     """Mutual-argmax matches above `threshold`, indexed by image-1 keypoints
-    (train_idx -> image 0), like ops.matching.match_frames. Ties go to the
-    first index, as with jnp.argmax."""
+    (train_idx -> image 0), like ops.matching.match_frames; for S pairs
+    (a leading S on every input) each pair's, with a leading S. Ties go
+    to the first index, as with jnp.argmax (an argmax's answer does not
+    depend on its order of comparison, so it runs over the stack)."""
     scores, _, _ = assignment_scores(params, desc0, xy0, valid0, desc1, xy1, valid1, image_size)
-    best0_for_1 = torch.argmax(scores, dim=0)  # [K1]
-    best1_for_0 = torch.argmax(scores, dim=1)  # [K0]
-    cols = torch.arange(scores.shape[1], device=scores.device)
-    mutual = best1_for_0[best0_for_1] == cols
-    sc = scores[best0_for_1, cols]
+    best0_for_1 = torch.argmax(scores, dim=-2)  # [..., K1]
+    best1_for_0 = torch.argmax(scores, dim=-1)  # [..., K0]
+    cols = torch.arange(scores.shape[-1], device=scores.device)
+    if scores.dim() == 2:
+        mutual = best1_for_0[best0_for_1] == cols
+        sc = scores[best0_for_1, cols]
+    else:
+        mutual = torch.gather(best1_for_0, -1, best0_for_1) == cols
+        sc = torch.gather(scores, -2, best0_for_1[..., None, :])[..., 0, :]
     return FrameMatches(train_idx=best0_for_1, distance=1.0 - sc,
                         valid=mutual & (sc > threshold) & valid1)
 

@@ -32,7 +32,15 @@ is positive. And a descriptor of norm 0 has a gradient of 0 here, NaN in
 JAX.
 
 Public functions keep the JAX layouts: images [H, W], features [Hc, Wc, C],
-heatmaps [H, W], descriptor maps [Hc, Wc, D]. Parameters keep the JAX
+heatmaps [H, W], descriptor maps [Hc, Wc, D]; each also takes S frames
+with a leading S ([S, H, W], ...), and `SuperPointFrontend.extract` of
+[S, H, W] returns Features with a leading S. Each frame's result equals
+its own call's to the bit: the network (every convolution and the heads'
+1x1 products) runs a frame at a time, since cuDNN picks its algorithm,
+and so its order of summing, by batch shape; the softmax, the keypoint
+selection, the sampling and the normalisations run over the stack
+(chip_smoke.py's check_superpoint_batched holds the result to per-frame
+extraction on the card). Parameters keep the JAX
 pytree's fields, with convolution kernels in PyTorch's OIHW layout
 (`utils.convert.superpoint_params_from_numpy` converts from HWIO).
 """
@@ -115,8 +123,20 @@ def _conv1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, compute_dtype=None
     return xt @ _round(w[:, :, 0, 0], compute_dtype).T + b
 
 
+def _per_frame(fn, x: torch.Tensor):
+    """fn on each frame of a leading-S stack, stacked (tuples field by
+    field): the network at one frame's shapes."""
+    outs = [fn(xi) for xi in x]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def backbone(params: SuperPointParams, img: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    """[H, W] grayscale -> [H/8, W/8, 128] features."""
+    """[H, W] grayscale -> [H/8, W/8, 128] features ([S, ...] for S frames,
+    a frame at a time)."""
+    if img.dim() == 3:
+        return _per_frame(lambda im: backbone(params, im, compute_dtype), img)
     x = img[None, None].to(torch.float32)
     i = 0
     for stage in range(len(ENCODER_CHANNELS)):
@@ -130,8 +150,11 @@ def backbone(params: SuperPointParams, img: torch.Tensor, compute_dtype=None) ->
 
 def heads_logits(params: SuperPointParams, feat: torch.Tensor, compute_dtype=None):
     """[Hc, Wc, C] features -> (detector logits [Hc, Wc, 65], unit-norm dense
-    descriptors [Hc, Wc, D]), both float32. The logits are the training
-    surface (a cell-wise cross-entropy against corner labels)."""
+    descriptors [Hc, Wc, D]), both float32 ([S, ...] for S frames, a frame
+    at a time). The logits are the training surface (a cell-wise
+    cross-entropy against corner labels)."""
+    if feat.dim() == 4:
+        return _per_frame(lambda f: heads_logits(params, f, compute_dtype), feat)
     x = feat.permute(2, 0, 1)[None]
     d = torch.relu(_conv3(x, params.det_w[0], params.det_b[0], compute_dtype))
     logits = _conv1(d, params.det_w[1], params.det_b[1], compute_dtype)
@@ -141,11 +164,12 @@ def heads_logits(params: SuperPointParams, feat: torch.Tensor, compute_dtype=Non
 
 
 def heads(params: SuperPointParams, feat: torch.Tensor, compute_dtype=None):
-    """-> (heatmap [H, W], dense descriptors [Hc, Wc, D])."""
+    """-> (heatmap [H, W], dense descriptors [Hc, Wc, D]), or [S, ...] each."""
     logits, desc = heads_logits(params, feat, compute_dtype)
     prob = torch.softmax(logits, dim=-1)[..., :64]  # drop the dustbin
-    heat = F.pixel_shuffle(prob.permute(2, 0, 1)[None], CELL)[0, 0]
-    return heat, desc
+    if prob.dim() == 3:
+        return F.pixel_shuffle(prob.permute(2, 0, 1)[None], CELL)[0, 0], desc
+    return F.pixel_shuffle(prob.permute(0, 3, 1, 2), CELL)[:, 0], desc
 
 
 def select_keypoints(
@@ -157,8 +181,11 @@ def select_keypoints(
     border: int = 4,
 ):
     """Grid-cell argmax selection on the heatmap (static K), then a
-    parabola sub-pixel fit. Returns (xy [K, 2], score [K], valid [K])."""
-    H, W = heat.shape
+    parabola sub-pixel fit. Returns (xy [K, 2], score [K], valid [K]), or
+    [S, K, ...] each for an [S, H, W] stack (argmaxes, gathers and
+    elementwise work: each frame's answer is its own call's)."""
+    H, W = heat.shape[-2:]
+    lead = heat.shape[:-2]
     dev = heat.device
     score = heat
     if mask is not None:
@@ -170,25 +197,31 @@ def select_keypoints(
 
     gh, gw = -(-H // cell), -(-W // cell)
     padded = F.pad(score, (0, gw * cell - W, 0, gh * cell - H))
-    cells = padded.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
+    cells = padded.reshape(*lead, gh, cell, gw, cell).transpose(-3, -2).reshape(
+        *lead, gh * gw, cell * cell)
     rows = torch.arange(gh * gw, device=dev)
     bests, scores = [], []
     for _ in range(n_per_cell):
         b = torch.argmax(cells, dim=-1)
         bests.append(b)
-        scores.append(cells[rows, b])
-        cells = cells.index_put((rows, b), torch.zeros((), device=dev))
-    best = torch.cat(bests)
-    sc = torch.cat(scores)
+        if lead:
+            scores.append(torch.gather(cells, -1, b[..., None])[..., 0])
+            cells = cells.scatter(-1, b[..., None], 0.0)
+        else:
+            scores.append(cells[rows, b])
+            cells = cells.index_put((rows, b), torch.zeros((), device=dev))
+    best = torch.cat(bests, dim=-1)
+    sc = torch.cat(scores, dim=-1)
     cell_ids = rows.repeat(n_per_cell)
     cy = (cell_ids // gw) * cell + best // cell
     cx = (cell_ids % gw) * cell + best % cell
 
     cyc = torch.clamp(cy, 1, H - 2)
     cxc = torch.clamp(cx, 1, W - 2)
+    frame = torch.arange(lead[0], device=dev)[:, None] if lead else None
 
     def s(dy, dx):
-        return heat[cyc + dy, cxc + dx]
+        return heat[cyc + dy, cxc + dx] if frame is None else heat[frame, cyc + dy, cxc + dx]
 
     denom_x = s(0, -1) - 2.0 * s(0, 0) + s(0, 1)
     denom_y = s(-1, 0) - 2.0 * s(0, 0) + s(1, 0)
@@ -201,8 +234,12 @@ def select_keypoints(
 
 
 def sample_descriptors(desc_map: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Bilinear descriptor sampling at pixel coords: [Hc, Wc, D], [K, 2] -> [K, D]."""
-    out = bilinear_sample(desc_map, xy / CELL - 0.5)
+    """Bilinear descriptor sampling at pixel coords: [Hc, Wc, D], [K, 2] -> [K, D]
+    (or [S, ...] each: sampled a frame at a time, normalised over the stack)."""
+    if desc_map.dim() == 4:
+        out = torch.stack([bilinear_sample(d, c / CELL - 0.5) for d, c in zip(desc_map, xy)])
+    else:
+        out = bilinear_sample(desc_map, xy / CELL - 0.5)
     return out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-8)
 
 
@@ -249,7 +286,9 @@ class SuperPointFrontend:
         return self.n_per_cell * (-(-height // self.cell)) * (-(-width // self.cell))
 
     def extract(self, img: torch.Tensor, mask: torch.Tensor | None = None) -> Features:
-        """Features of one float32 [H, W] frame; `mask` [H, W], nonzero = allowed."""
+        """Features of one float32 [H, W] frame, or of S frames [S, H, W]
+        (Features with a leading S, each frame's equal to its own call's);
+        `mask` [H, W], nonzero = allowed."""
         bf16 = torch.bfloat16
         heat, desc_map = heads(self.params, backbone(self.params, img, bf16), bf16)
         xy, score, valid = select_keypoints(heat, mask, self.cell, self.n_per_cell,

@@ -49,8 +49,8 @@ SIGNATURES = {
     # out, points_out, scratch|NULL, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
     # cluster, stream
     "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
-    # q, k, v, mask_k, out, workspace, Kq, Kk, H, dh, chunks, scale, stream
-    "slam_flash_mha": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # q, k, v, mask_k, out, workspace, S, Kq, Kk, H, dh, chunks, scale, stream
+    "slam_flash_mha_seq": [_P] * 6 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -128,8 +128,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.slam_structure_ba_scratch_bytes.argtypes = [_I, _I, _I]
             handle.slam_structure_ba_scratch_bytes.restype = ctypes.c_size_t
-            handle.slam_flash_mha_workspace_bytes.argtypes = [_I] * 5
-            handle.slam_flash_mha_workspace_bytes.restype = ctypes.c_size_t
+            handle.slam_flash_mha_seq_workspace_bytes.argtypes = [_I] * 6
+            handle.slam_flash_mha_seq_workspace_bytes.restype = ctypes.c_size_t
             handle.slam_error_string.argtypes = [ctypes.c_int]
             handle.slam_error_string.restype = ctypes.c_char_p
             _lib = handle

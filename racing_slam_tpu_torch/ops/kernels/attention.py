@@ -23,6 +23,15 @@ warpgroup on wgmma, exp2 of logits pre-scaled in one FFMA; and a combine
 of the chunks' unnormalised (o, l, m). `default_chunks` splits the keys so
 that every SM holds several CTAs. `flash_mha_reference(..., tile_k=64,
 chunks=S)` is the same recurrence, split and combine.
+
+Batched: S problems of one shape (LightGlue over the S frame pairs of a
+lockstep frame) take a leading S on every operand ([S, Kq, H, dh],
+[S, Kk, H, dh], [S, Kk]) and share each of the three launches, the
+problem a coordinate of every grid. The split of the keys is one
+problem's (`default_chunks` of one row, however many rows run), since it
+sets the order of the combine's sums: so each row equals the call on that
+row alone to the bit. One call is one count of `launches`, batched or not;
+`batched_launches` counts the calls that had a leading S.
 """
 
 from __future__ import annotations
@@ -32,13 +41,14 @@ import torch
 from . import _build
 
 launches = 0
+batched_launches = 0  # the calls of `launches` that ran S problems at once
 NEG = -1e9
 KEY_TILE = 64  # keys per tile of the kernel (csrc/attention_kernel.cu TK)
 QUERY_TILE = 64
 
 
 def flash_mha_reference(
-    q: torch.Tensor,  # [Kq, H, dh]
+    q: torch.Tensor,  # [Kq, H, dh] ([S, Kq, H, dh] for S problems)
     k: torch.Tensor,  # [Kk, H, dh]
     v: torch.Tensor,  # [Kk, H, dh]
     mask_k: torch.Tensor,  # [Kk] bool
@@ -58,7 +68,11 @@ def flash_mha_reference(
     does the recurrence from m = -1e9, l = 0 on its own, and the runs'
     unnormalised (acc, den, m) are merged in run order: m = max m_c,
     den = sum exp(m_c - m) den_c, acc likewise, out = acc / den. An
-    all-padding run ends with den = 0 and adds nothing."""
+    all-padding run ends with den = 0 and adds nothing. For leading-S
+    operands, row by row."""
+    if q.dim() == 4:
+        return torch.stack([flash_mha_reference(*row, tile_k=tile_k, chunks=chunks)
+                            for row in zip(q, k, v, mask_k)])
     Kq, H, dh = q.shape
     Kk = k.shape[0]
     scale = 1.0 / float(dh) ** 0.5
@@ -120,42 +134,48 @@ def flash_mha(
     mask_k: torch.Tensor,  # [Kk] bool
     chunks: int | None = None,
 ) -> torch.Tensor:
-    """[Kq, H, dh] f32 attention output; query rows are not masked.
-    `chunks`: the kernel's split of the keys (default `default_chunks`);
-    the twin on the CPU runs unsplit. The kernel has no backward (nor has
-    the TPU kernel), and the twin's bf16 casts would pass gradients
-    straight through, so an operand that requires grad raises, on either
-    device: a loss takes `models.lightglue`'s float32 route."""
+    """[Kq, H, dh] f32 attention output, or [S, Kq, H, dh] for S problems
+    given a leading S on every operand; query rows are not masked.
+    `chunks`: the kernel's split of the keys (default `default_chunks` of
+    one problem); the twin on the CPU runs unsplit. The kernel has no
+    backward (nor has the TPU kernel), and the twin's bf16 casts would pass
+    gradients straight through, so an operand that requires grad raises, on
+    either device: a loss takes `models.lightglue`'s float32 route."""
     if any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_mha has no backward: an operand requires grad; "
                            "differentiate LightGlue with attn_backend='xla_flash'")
     if _build.device_kind(q, k, v, mask_k) == "cpu":
         return flash_mha_reference(q, k, v, mask_k)
-    Kq, H, dh = q.shape
-    Kk = k.shape[0]
-    if dh not in (16, 32, 64) or Kq < 1 or Kk < 1:
-        raise ValueError(f"flash_mha kernel takes dh in (16, 32, 64) and Kq, Kk >= 1; "
-                         f"got dh={dh}, Kq={Kq}, Kk={Kk}")
+    lead = tuple(q.shape[:-3])  # () or (S,)
+    if len(lead) > 1:
+        raise ValueError(f"q: expected [Kq, H, dh] or [S, Kq, H, dh], got {tuple(q.shape)}")
+    S = lead[0] if lead else 1
+    Kq, H, dh = q.shape[-3:]
+    Kk = k.shape[-3]
+    if dh not in (16, 32, 64) or Kq < 1 or Kk < 1 or S < 1:
+        raise ValueError(f"flash_mha kernel takes dh in (16, 32, 64) and S, Kq, Kk >= 1; "
+                         f"got dh={dh}, S={S}, Kq={Kq}, Kk={Kk}")
     q, k, v, mask_k = _operand(q), _operand(k), _operand(v), mask_k.contiguous()
-    _build.expect(q, "q", torch.float32, (Kq, H, dh))
-    _build.expect(k, "k", torch.float32, (Kk, H, dh))
-    _build.expect(v, "v", torch.float32, (Kk, H, dh))
-    _build.expect(mask_k, "mask_k", torch.bool, (Kk,))
+    _build.expect(q, "q", torch.float32, (*lead, Kq, H, dh))
+    _build.expect(k, "k", torch.float32, (*lead, Kk, H, dh))
+    _build.expect(v, "v", torch.float32, (*lead, Kk, H, dh))
+    _build.expect(mask_k, "mask_k", torch.bool, (*lead, Kk))
     if chunks is None:
         chunks = default_chunks(Kq, Kk, H)
     lib = _build.lib()
-    n_ws = lib.slam_flash_mha_workspace_bytes(Kq, Kk, H, dh, chunks)
+    n_ws = lib.slam_flash_mha_seq_workspace_bytes(S, Kq, Kk, H, dh, chunks)
     if n_ws == 0:
-        raise ValueError(f"flash_mha kernel: no plan for Kq={Kq}, Kk={Kk}, H={H}, "
+        raise ValueError(f"flash_mha kernel: no plan for S={S}, Kq={Kq}, Kk={Kk}, H={H}, "
                          f"chunks={chunks}")
     workspace = torch.empty((n_ws,), dtype=torch.uint8, device=q.device)
-    out = torch.empty((Kq, H, dh), dtype=torch.float32, device=q.device)
-    err = lib.slam_flash_mha(
+    out = torch.empty((*lead, Kq, H, dh), dtype=torch.float32, device=q.device)
+    err = lib.slam_flash_mha_seq(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_k), _build.ptr(out),
-        _build.ptr(workspace), Kq, Kk, H, dh, chunks, 1.0 / float(dh) ** 0.5,
+        _build.ptr(workspace), S, Kq, Kk, H, dh, chunks, 1.0 / float(dh) ** 0.5,
         _build.stream(q.device),
     )
     _build.check(err, "flash_mha")
-    global launches
+    global launches, batched_launches
     launches += 1
+    batched_launches += bool(lead)
     return out

@@ -27,8 +27,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..ops.camera import Camera
 from ..slam.config import SlamConfig
-from ..slam.frontend import ClassicalFrontend
-from ..slam.pipeline import Slam, check_multi_config, slam_step_multi
+from ..slam.pipeline import Slam, slam_step_multi
 from ..slam.state import SlamState, set_state_row, stack_states, state_row, tree_map
 from .mesh import axis_rank, axis_size
 
@@ -79,15 +78,20 @@ class MultiSlam:
     (parallel/refine.make_refine_step over the mesh's 'lm' axis; without a
     mesh, on this device alone).
 
-    Every pose prediction runs in the lockstep step, as does the banded
-    matcher (`matching_backend="banded"`, kernel K5 over the rows). Row i
-    draws its RANSAC uniforms from its own Slam's generator, on the frames
-    where it takes the essential prediction, so that its stream is its own
-    Slam's; `adaptive` chooses per row from the row's previous inlier count,
-    kept on the host from each lockstep frame's one read and from its
+    Every configuration of the Slam runs in the lockstep step: every pose
+    prediction, both map matchers (`matching_backend="banded"`: kernel K5
+    over the rows), the classical and the learned frontend
+    (`models.superpoint.SuperPointFrontend` over the S frames) and both
+    frame matchers (`matcher="lightglue"`: kernel K6 over the rows that
+    take the essential prediction). The Slams share one frontend (the
+    first Slam's classical one when `frontend` is None), and so one frame
+    matcher, whose LightGlue weights load once. Row i draws its
+    RANSAC uniforms from its own Slam's generator, on the frames where it
+    takes the essential prediction, so that its stream is its own Slam's;
+    `adaptive` chooses per row from the row's previous inlier count, kept
+    on the host from each lockstep frame's one read and from its
     bootstrap. Each row's essential predictions and banded fallbacks are
-    counted (`essential_predictions`, `banded_fallbacks()`). The learned
-    frontend and LightGlue raise NotImplementedError (slice 7c). The state
+    counted (`essential_predictions`, `banded_fallbacks()`). The state
     lives on `device`, the card unless told otherwise."""
 
     def __init__(
@@ -104,7 +108,6 @@ class MultiSlam:
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
-        check_multi_config(config, frontend if frontend is not None else ClassicalFrontend())
         self.mesh = mesh
         self.cam = cam
         self.cfg = config
@@ -125,12 +128,14 @@ class MultiSlam:
         self.local_rows = local_row_indices(mesh, self.S)
         # Seed per GLOBAL row, so that every layout of ranks draws the same
         # streams and a run over several ranks reproduces one process's.
-        self._slams = [
-            Slam(cam, v, config, static_mask=static_mask, seed=seed + g, frontend=frontend,
-                 device=self.device)
-            for g, v in zip(self.local_rows, videos)
-        ]
-        self.frontend = self._slams[0].frontend
+        # The first Slam's frontend (its default one when `frontend` is
+        # None) is every other's.
+        self._slams = []
+        for g, v in zip(self.local_rows, videos):
+            self._slams.append(Slam(cam, v, config, static_mask=static_mask, seed=seed + g,
+                                    frontend=frontend, device=self.device))
+            frontend = self._slams[0].frontend
+        self.frontend = frontend
         self._step = multi_sequence_step(cam=cam, cfg=config, frontend=self.frontend)
         self._mask = self._slams[0]._mask
         self.states: SlamState | None = None

@@ -35,17 +35,20 @@ class ClassicalMatcher:
 class LightGlueMatcher:
     """The LightGlue attention matcher behind the frame-matching interface;
     it uses the keypoint coordinates for its rotary position encoding.
-    `params` come from `models.lightglue.load_params` and must lie on
-    `device`, the card unless the caller asks for the CPU."""
+    `params` come from `models.lightglue.load_params` (`weights`: the file
+    they came from, if any) and must lie on `device`, the card unless the
+    caller asks for the CPU. Takes one frame pair, or S pairs with a
+    leading S (K6 once for all S at each attention site)."""
 
     def __init__(self, params: lightglue.LightGlueParams, image_size: tuple[float, float],
-                 threshold: float = 0.35, device="cuda"):
+                 threshold: float = 0.35, device="cuda", weights: str | None = None):
         dev = resolve_device(device)
         if params.in_proj_w.device.type != dev.type:
             raise ValueError(f"LightGlue weights on {params.in_proj_w.device}, matcher on {dev}")
         self.params = params
         self.image_size = image_size
         self.threshold = threshold
+        self.weights = weights
 
     def __call__(self, desc0, xy0, valid0, desc1, xy1, valid1):
         return lightglue.match(self.params, desc0, xy0, valid0, desc1, xy1, valid1,

@@ -523,22 +523,6 @@ class MultiStepInfo(NamedTuple):
     band_fallbacks: torch.Tensor | None = None  # [S] banded matcher: dense fallbacks (0-2)
 
 
-def check_multi_config(cfg: SlamConfig, frontend) -> None:
-    """Raise NotImplementedError for a configuration the lockstep step does
-    not take: it runs the classical frontend and the mutual 1-NN frame
-    matcher (under every pose prediction, with the dense or the banded map
-    matcher)."""
-    refused = []
-    if not isinstance(frontend, ClassicalFrontend):
-        refused.append(f"the {type(frontend).__name__} frontend")
-    if cfg.matcher != "classical":
-        refused.append(f"matcher={cfg.matcher!r}")
-    if refused:
-        raise NotImplementedError(
-            f"the multi-sequence step does not take {', '.join(refused)} yet "
-            "(ROADMAP.md Queue 1, slice 7c); run such sequences one by one through Slam")
-
-
 def _row_mask(S: int, rows: list, device) -> torch.Tensor:
     """[S] bool on the device, True at `rows`, filled there (no host copy)."""
     mask = torch.zeros((S,), dtype=torch.bool, device=device)
@@ -624,14 +608,18 @@ def slam_step_multi(
     on their device, `active` S host bools (False: the sequence has no frame
     now, its row is left as it was).
 
-    The tracking is slam_step's own (_track over the stacked rows): K1 runs
-    once for the S frames and K2 and K3 twice, each one launch for all
-    rows; the banded matcher (`matching_backend="banded"`) launches K5 and
-    its K2 fallback once for all rows too, each row falling back alone. The
-    pose prediction is slam_step's: the motion prediction, or the
-    essential prediction over the rows that take it, drawing row i's
-    RANSAC uniforms from `generators[i]` (or taking them from `uniforms`
-    [S, H, K]); `adaptive` chooses per row from `last_inliers`, each row's
+    The tracking is slam_step's own (_track over the stacked rows): the
+    frontend extracts the S frames at once (the classical one with one K1
+    launch; SuperPoint runs its network a frame at a time) and K2 and K3
+    run twice, each one launch for all rows; the banded matcher
+    (`matching_backend="banded"`) launches K5 and its K2 fallback once for
+    all rows too, each row falling back alone. The pose prediction is
+    slam_step's: the motion prediction, or the essential prediction over
+    the rows that take it, its frame match `frontend.matcher` over those
+    rows stacked (LightGlue: each attention site one K6 call for all of
+    them), drawing row i's RANSAC uniforms from `generators[i]` (or taking
+    them from `uniforms` [S, H, K]); `adaptive` chooses per row from
+    `last_inliers`, each row's
     state.last_inliers as host ints (the previous lockstep frame's read;
     when None, the step reads them, a second read). The [S] keyframe
     decisions and inlier counts come back in the step's one host read;
@@ -642,7 +630,6 @@ def slam_step_multi(
     not. `commit_nos` are the rows' commit numbers (see _commit_keyframe).
     Returns (states, MultiStepInfo); the input `states` is updated in place
     where rows commit."""
-    check_multi_config(cfg, frontend)
     S = imgs.shape[0]
     dev = imgs.device
     if imgs.dtype == torch.uint8:
@@ -895,9 +882,17 @@ class Slam:
     def _lightglue_matcher(self) -> LightGlueMatcher:
         """LightGlue on the weights for the frontend's descriptor space:
         `lightglue_weights`, or the committed file picked by the descriptor
-        dimension (JAX Slam, pipeline.py:870-904)."""
+        dimension (JAX Slam, pipeline.py:870-904). The frontend's matcher
+        is kept when it is already that one (Slams sharing a frontend, as
+        MultiSlam's do, load the weights once)."""
         dim = self.frontend.descriptor_dim
         wpath = self.cfg.lightglue_weights or str(lightglue.default_weights(dim))
+        size = (float(self.cam.width), float(self.cam.height))
+        have = self.frontend.matcher
+        if isinstance(have, LightGlueMatcher) and (have.weights, have.image_size, have.threshold) \
+                == (wpath, size, self.cfg.lightglue_threshold) \
+                and have.params.in_proj_w.device.type == self.device.type:
+            return have
         params = lightglue.load_params(wpath, device=self.device)
         in_dim = params.in_proj_w.shape[0]
         if in_dim != dim:
@@ -906,8 +901,8 @@ class Slam:
                 f"{type(self.frontend).__name__} produces {dim}-d ones; pass matching "
                 "weights via lightglue_weights"
             )
-        return LightGlueMatcher(params, image_size=(float(self.cam.width), float(self.cam.height)),
-                                threshold=self.cfg.lightglue_threshold, device=self.device)
+        return LightGlueMatcher(params, image_size=size, threshold=self.cfg.lightglue_threshold,
+                                device=self.device, weights=wpath)
 
     # -- frame source -------------------------------------------------------
     def _to_u8(self, img) -> np.ndarray:

@@ -111,20 +111,32 @@ def k4_caller(lib, cluster: int | None):
     return call
 
 
-def k6_caller(lib, split: bool, chunks: int):
-    """fn(q, k, v, mask) -> out for one build of K6 (split False: the
-    single-launch interface)."""
+def k6_interface(lib) -> str:
+    """Which C interface a build of K6 exports: "seq" (S problems a call,
+    with a workspace), "split" (one problem, with a workspace) or "single"
+    (one launch, no workspace)."""
+    if hasattr(lib, "slam_flash_mha_seq"):
+        return "seq"
+    return "split" if hasattr(lib, "slam_flash_mha_workspace_bytes") else "single"
+
+
+def k6_caller(lib, interface: str, chunks: int):
+    """fn(q, k, v, mask) -> out for one build of K6 (`interface` from
+    k6_interface; "seq" runs one problem, S = 1)."""
     from ..ops.kernels import attention
 
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.slam_flash_mha
+    fn = lib.slam_flash_mha_seq if interface == "seq" else lib.slam_flash_mha
     fn.restype = ctypes.c_int
-    if not split:
+    lead = [1] if interface == "seq" else []
+    if interface == "single":
         fn.argtypes = [P_] * 5 + [I_] * 4 + [F_, P_]
     else:
-        fn.argtypes = [P_] * 6 + [I_] * 5 + [F_, P_]
-        lib.slam_flash_mha_workspace_bytes.argtypes = [I_] * 5
-        lib.slam_flash_mha_workspace_bytes.restype = ctypes.c_size_t
+        ws_bytes = (lib.slam_flash_mha_seq_workspace_bytes if interface == "seq"
+                    else lib.slam_flash_mha_workspace_bytes)
+        fn.argtypes = [P_] * 6 + [I_] * (5 + len(lead)) + [F_, P_]
+        ws_bytes.argtypes = [I_] * (5 + len(lead))
+        ws_bytes.restype = ctypes.c_size_t
 
     def call(q, k, v, mask):
         Kq, H, dh = q.shape
@@ -133,13 +145,13 @@ def k6_caller(lib, split: bool, chunks: int):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         scale = 1.0 / float(dh) ** 0.5
         ptrs = [t.data_ptr() for t in (q, k, v, mask, out)]
-        if not split:
+        if interface == "single":
             err = fn(*ptrs, Kq, Kk, H, dh, scale, stream)
         else:
-            S = chunks or attention.default_chunks(Kq, Kk, H)
-            ws = torch.empty(lib.slam_flash_mha_workspace_bytes(Kq, Kk, H, dh, S),
-                             dtype=torch.uint8, device=q.device)
-            err = fn(*ptrs, ws.data_ptr(), Kq, Kk, H, dh, S, scale, stream)
+            n = chunks or attention.default_chunks(Kq, Kk, H)
+            ws = torch.empty(ws_bytes(*lead, Kq, Kk, H, dh, n), dtype=torch.uint8,
+                             device=q.device)
+            err = fn(*ptrs, ws.data_ptr(), *lead, Kq, Kk, H, dh, n, scale, stream)
         if err:
             raise RuntimeError(f"K6 launch failed: CUDA error {err}")
         return out
@@ -188,9 +200,10 @@ def main() -> int:
             variants[f"{name}/K4" + (f"/cluster{c}" if c else "")] = (
                 lambda call=call: call(k4_args, k4_kw),
                 lambda out: float((out[0][:6] - k4_ref[:6]).abs().max()))
-        has_ws = hasattr(lib, "slam_flash_mha_workspace_bytes")
+        interface = k6_interface(lib)
+        has_ws = interface != "single"
         for S in ([int(x) for x in args.k6_chunks.split(",")] if has_ws else [0]):
-            call = k6_caller(lib, has_ws, S)
+            call = k6_caller(lib, interface, S)
             key = f"{name}/K6" + (f"/chunks{S or 'default'}" if has_ws else "")
             variants[key] = (lambda call=call: call(q, k, v, mask),
                              lambda out: float((out - k6_ref).abs().max()))

@@ -4,19 +4,21 @@ through several source trees of the port on one CUDA card.
 Run from the repository root:
 
     python3 racing_slam_tpu_torch/tools/path_ab.py --tree NAME=DIR [--tree NAME=DIR ...]
-        [--paths classical,lightglue,headline,scale,adaptive,essential,multi]
+        [--paths classical,learned,lightglue,headline,scale,adaptive,essential,multi]
         [--rounds 1] [--profile-frames 32] [--out FILE]
 
 Each DIR is the root of a checkout (it holds ``racing_slam_tpu_torch/``);
-the paths' configurations come from this checkout's ``chip_smoke.py``
-(``path_config``, ``multi_config("multi")``). The bench worlds of the
+the paths' configurations and frontends come from this checkout's
+``chip_smoke.py`` (``path_config`` and ``superpoint_frontend`` for the
+learned path, ``multi_config`` and ``multi_frontend``). The bench worlds of the
 ``multi`` path (seeds 3, 5, 7, 8, 9, 10, 11, 12; 98 frames, 640x480) are
 rendered once, by worker processes, into ``build/path_ab/`` (and read
 from there by later runs);
 every single-sequence path runs on the first of them (seed 3, 96 tracked
 frames), the multi paths (``multi``, ``multi_essential``, ``multi_adaptive``,
-``multi_scale``) on all eight (MultiSlam, S=8; a tree whose MultiSlam
-refuses the configuration prints ``refused``).
+``multi_scale``, ``multi_learned``, ``multi_lightglue_essential``) on all
+eight (MultiSlam, S=8; a tree whose MultiSlam refuses the configuration
+prints ``refused``).
 
 Each round runs the trees in order and then in reverse (A B B A for two
 trees), each in a process of its own whose import path starts at its DIR,
@@ -28,7 +30,8 @@ synchronised at both ends (frames a second; total over the eight rows on
 ``multi``; no sync debug mode), then a replay of the first
 ``--profile-frames`` frames under ``torch.profiler``
 (``chip_smoke.profile_run``): device events, device busy ms and wall ms a
-frame (none with ``--profile-frames 0``; the profiler's own processing
+frame, with the window's largest device items and the port's kernels
+(none with ``--profile-frames 0``; the profiler's own processing
 takes minutes for a few hundred thousand events). Prints one JSON line per tree, path and round, then per path each
 tree's median over its rounds and the ratio of each tree's to the first
 tree's; ``--out`` also writes that summary as JSON.
@@ -51,7 +54,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[2]
 SEEDS = (3, 5, 7, 8, 9, 10, 11, 12)
 FRAMES = 98
-PATHS = ("classical", "lightglue", "headline", "scale", "adaptive", "essential", "multi")
+PATHS = ("classical", "learned", "lightglue", "headline", "scale", "adaptive", "essential",
+         "multi")
 MARK = "PATH_AB "
 
 
@@ -96,14 +100,16 @@ def _profile(cs, fn, frames: int, device: str) -> dict:
     return dict(device_events_per_frame=prof["device_events"] / frames,
                 device_busy_ms_per_frame=prof["device_busy_ms"] / frames,
                 profiled_wall_ms_per_frame=prof["wall_ms"] / frames,
-                busy_share=prof["busy_share"])
+                busy_share=prof["busy_share"], top_ms=prof["top_ms"], kernels=prof["kernels"])
 
 
 def run_single(cs, path: str, cam, frames: list, profile_frames: int, device: str) -> dict:
     from racing_slam_tpu_torch.slam.pipeline import Slam
     from racing_slam_tpu_torch.utils.video import ArraySource
 
-    slam = Slam(cam, ArraySource(frames), cs.path_config(path), device=device, seed=0)
+    frontend = cs.superpoint_frontend(device) if cs.PATHS[path][0] == "superpoint" else None
+    slam = Slam(cam, ArraySource(frames), cs.path_config(path), frontend=frontend, device=device,
+                seed=0)
     assert slam.initialize(), f"{path}: bootstrap failed"
     n, wall = _timed(lambda: slam.run_batched(batch=cs.BATCH), device)
     res = dict(frames=n, fps=n / wall, keyframes=int(slam.state.num_kf))
@@ -122,7 +128,7 @@ def run_multi(cs, path: str, cam, worlds: list, profile_frames: int, device: str
 
     def fleet():
         ms = MultiSlam(cam, [ArraySource(f) for f in worlds], None, cs.multi_config(path),
-                       device=device)
+                       frontend=cs.multi_frontend(path, device), device=device)
         assert ms.initialize(), f"{path}: bootstrap failed"
         _sync(device)
         return ms

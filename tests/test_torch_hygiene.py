@@ -101,9 +101,12 @@ CASES = {
                     _meta((512,), torch.int32), _meta((1024, 2)), _meta((1024, 128)),
                     _meta((1024,), torch.bool), _meta((2,), torch.int32),
                     _meta((), torch.int32)), dict(radius_px=28.0)),
-    "K6": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha",
+    "K6": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha_seq",
            lambda: (_meta((64, 4, 32)), _meta((96, 4, 32)), _meta((96, 4, 32)),
                     _meta((96,), torch.bool)), {}),
+    "K6[S]": (k6, "flash_mha", "flash_mha_reference", "slam_flash_mha_seq",
+              lambda: (_meta((3, 64, 4, 32)), _meta((3, 96, 4, 32)), _meta((3, 96, 4, 32)),
+                       _meta((3, 96), torch.bool)), {}),
 }
 
 
@@ -120,7 +123,7 @@ class FakeLib:
         self.slam_error_string = lambda e: b"stub error"
         # Buffer sizes the K4 and K6 wrappers ask for before a launch.
         self.slam_structure_ba_scratch_bytes = lambda P, O, cluster: 0
-        self.slam_flash_mha_workspace_bytes = lambda Kq, Kk, H, dh, chunks: 1 << 20
+        self.slam_flash_mha_seq_workspace_bytes = lambda S, Kq, Kk, H, dh, chunks: 1 << 20
 
 
 @pytest.fixture

@@ -479,6 +479,36 @@ def test_k6_kernel_matches_twin(cuda, Kq, Kk, dh, valid):
     np.testing.assert_allclose(got, want, atol=0.05 * np.sqrt(np.mean(want**2)), rtol=0)
 
 
+@pytest.mark.parametrize("Kq,Kk,dh,valid", [
+    (2400, 2400, 32, (0.8, 0.0, 0.5)),  # LightGlue's shape, one row all masked
+    (600, 2333, 32, (0.9, 0.6, 0.3)),  # a ragged key count: a partial last key tile
+    (300, 130, 16, (0.5, 1.0, 0.7)),  # fewer keys than one chunk
+])
+def test_k6_batched_equals_single_calls(cuda, Kq, Kk, dh, valid):
+    """K6 over S = 3 problems in one call (LightGlue over the frame pairs of
+    a lockstep frame): each row bit-equal to a call on that row alone (the
+    batched call splits the keys as one row's does), one count of
+    `launches` and of `batched_launches`, and each row within
+    test_k6_kernel_matches_twin's limit of the batched twin (5 % of that
+    row's twin output RMS)."""
+    rng = np.random.default_rng(70 + Kk + dh)
+    S, H = len(valid), 4
+    q, k, v = [torch.from_numpy(rng.normal(size=(S, n, H, dh)).astype(np.float32)).to(cuda)
+               for n in (Kq, Kk, Kk)]
+    mask = torch.from_numpy(np.stack([rng.random(Kk) < f for f in valid])).to(cuda)
+    before = (k6.launches, k6.batched_launches)
+    got = k6.flash_mha(q, k, v, mask)
+    assert (k6.launches, k6.batched_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (S, Kq, H, dh)
+    want = k6.flash_mha_reference(q, k, v, mask).cpu().numpy()
+    for s in range(S):
+        assert torch.equal(got[s], k6.flash_mha(q[s], k[s], v[s], mask[s])), f"row {s}"
+        g = got[s].cpu().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, want[s], atol=0.05 * np.sqrt(np.mean(want[s] ** 2)), rtol=0)
+    assert k6.batched_launches == before[1] + 1  # the single calls counted apart
+
+
 def _k2_inputs(rng, P, K, W, H, D, radius, O=8, ties=20):
     """Keypoints over a W x H frame, points within 0.8 radius of random
     keypoints, unit descriptors, `ties` planted exact ties (keypoint 2i+1

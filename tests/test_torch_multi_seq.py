@@ -21,8 +21,6 @@ slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
     and the batched frontend equals per-frame extraction.
 (f) A lockstep frame makes one host read and one K1, two K2 and two K3
     calls, whatever S; inactive rows are left as they were.
-(g) Configurations outside the lockstep step (the learned frontend,
-    LightGlue: slice 7c) raise NotImplementedError.
 (h) The pose predictions and the banded matcher in the lockstep step:
     (a) under essential_matrix_estimation, adaptive (as it comes, where
     one row takes the essential prediction on a frame and the other does
@@ -416,22 +414,6 @@ def test_lockstep_frame_launches_and_inactive_rows(world, monkeypatch):
     assert _equal_states(state_row(states, 1), state_row(before, 1))
     assert not info.is_keyframe[1]
     assert int(states.frame_count[0]) == int(before.frame_count[0]) + 1
-
-
-@pytest.mark.parametrize("override", [dict(matcher="lightglue"), "superpoint"])
-def test_configurations_outside_the_step_raise(world, override):
-    cam, seqs = world
-    kw = {}
-    if override == "superpoint":
-        from racing_slam_tpu_torch.models import WEIGHTS_DIR, superpoint
-
-        kw["frontend"] = superpoint.SuperPointFrontend(
-            superpoint.load_params(WEIGHTS_DIR / "superpoint.npz", device="cpu"), device="cpu")
-        cfg = tiny_cfg()
-    else:
-        cfg = tiny_cfg(**override)
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu", **kw)
 
 
 def test_sharded_checkpoint_round_trip(world, tmp_path):
