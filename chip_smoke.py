@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      per row and alone, the shapes of multi_scale and scale; K6 batched
      over S=8 problems at [2400, 4, 32] with different valid shares, one
      all masked, and over S=3 at a ragged key count, each row bit-equal
-     to a call of the row alone), with
+     to a call of the row alone; K4 batched over S=8 commit problems with
+     their own data and free cameras, each bit-equal to a launch of it
+     alone and held to the twin by the single K4's rule, with the number
+     of its 16-CTA clusters the card holds at once), with
      device times (cuda_ms: CUDA
      events around 25 back-to-back calls queued behind a sleep kernel),
      the least time
@@ -56,17 +59,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   4b. `multi`: MultiSlam over S=8 bench worlds of 98 frames (seeds 3, 5,
      7, 8, 9, 10, 11, 12), classical configuration: one K1, two K2 and two
      K3 launches and one synchronising call a lockstep frame (sync debug
-     mode), every sequence held
+     mode), one K4 launch for the rows that commit on a lockstep frame,
+     every sequence held
      to ATE <= 10 % and coverage >= 0.85; the same worlds stepped frame by
      frame through MultiSlam and one by one through Slam, under constant
      velocity and constant position: each row's first lockstep frame whose
-     state differs from its Slam's, and the last poses' differences; total
+     state differs from its Slam's (none: 8 of 8 rows bit-equal to the end,
+     asserted), and the last poses' differences; total
      and per-sequence fps at S=1 and S=8 alternating 1, 8, 8, 1. The same
      eight worlds through MultiSlam under bench.py --essential
      (`multi_essential`), --prediction adaptive (`multi_adaptive`) and the
      scale configuration without the periodic refinement (`multi_scale`,
      K5 and K2's fallback batched too): the launches a lockstep frame (K5
-     twice on the scale one), one synchronising call a lockstep frame
+     twice on the scale one; on each frame where rows commit, K4 once for
+     them at W=1 and none on the scale one, whose commits take the window
+     BA a row at a time; single K4 launches only at the bootstraps and
+     re-bootstraps), one synchronising call a lockstep frame
      besides the essential prediction's solver checks (at most 17 a row
      that takes it), total fps (timed in sync debug mode), synchronising
      calls a lockstep frame and a Slam frame, per row ATE, coverage,
@@ -79,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      no K1 and no batched K6 a lockstep frame) and
      `multi_lightglue_essential` (the classical frontend, LightGlue on
      lightglue.npz, the essential prediction every frame: eight K6 calls
-     a lockstep frame, one for all rows at each attention site), gated on
-     the median row. `dist`: a
+     a lockstep frame, one for all rows at each attention site; and eight
+     more on each frame where rows commit, for them), gated on the median
+     row. Every one_by_one pass keeps its 8 rows bit-equal to the end. `dist`: a
      world of one over NCCL (FileStore): distributed_full_ba at the
      refinement shape bit-equal to full_ba, and MultiSlam on the mesh with
      a landmark-sharded refinement every batch, its costs printed;
@@ -874,11 +883,11 @@ def check_frontend_batched(frames: list, dev) -> dict:
                 replaces="racing_slam_tpu/ops/pallas/frontend_kernel.py:167")
 
 
-def _k4_data(dev, P: int = 2432, seed: int = 13):
+def _k4_data(dev, P: int = 2432, seed: int = 13, free: int = 31):
     """The commit problem: P points x O=8 observations of the 8 newest of
-    F=32 cameras along the bench dolly, the newest camera free and
-    perturbed, 0.5 px noise, 80 % of observations kept, the first 100
-    points frozen, 10 iterations, pixel Huber scale."""
+    F=32 cameras along the bench dolly, camera `free` (the newest by
+    default) free and perturbed, 0.5 px noise, 80 % of observations kept,
+    the first 100 points frozen, 10 iterations, pixel Huber scale."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -897,31 +906,32 @@ def _k4_data(dev, P: int = 2432, seed: int = 13):
     obs_uv += rng.normal(0, 0.5, obs_uv.shape)
     include = rng.uniform(size=(P, O)) < 0.8
     include[:, 0] |= True
-    free = np.ones(P, bool)
-    free[:100] = False
+    point_free = np.ones(P, bool)
+    point_free[:100] = False
     rv0, tv0 = rv.copy(), tv.copy()
-    rv0[F - 1] += [0.004, -0.003, 0.002]
-    tv0[F - 1] += [0.03, -0.02, 0.04]
+    rv0[free] += [0.004, -0.003, 0.002]
+    tv0[free] += [0.03, -0.02, 0.04]
     Xn = X + rng.normal(0, 0.02, X.shape)
     t = lambda a, d=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(d)  # noqa
     args = (t(rv0), t(tv0), t(Xn), t(obs_cam, torch.int64), t(obs_uv), t(include, torch.bool),
-            t(free, torch.bool), torch.full((), F - 1, dtype=torch.int64, device=dev))
+            t(point_free, torch.bool), torch.full((), free, dtype=torch.int64, device=dev))
     kw = dict(fx=fx, cx=cx, cy=cy, max_iters=10, huber_delta=float(np.sqrt(5.991)) / fx)
-    return args, kw, dict(rv0=rv0, tv0=tv0, Xn=Xn, obs_cam=obs_cam, include=include)
+    return args, kw, dict(rv0=rv0, tv0=tv0, Xn=Xn, obs_cam=obs_cam, include=include, free=free)
 
 
-def _twin_order_spread(k, args, kw) -> float:
+def _twin_order_spread(k, args, kw, n: int = 3) -> float:
     """Largest point difference between K4's twin and the twin on the same
-    problem with its points reordered (reversed, and two seeded
-    permutations): how far float32 summation order alone moves the points."""
+    problem with its points reordered (`n` orders: reversed, and n - 1
+    seeded permutations): how far float32 summation order alone moves the
+    points."""
     import torch
 
     _, pts = k.structure_ba_lm_reference(*args, **kw, ftol=0.0)
     P = pts.shape[0]
     gen = torch.Generator().manual_seed(0)
     spread = 0.0
-    for perm in (torch.arange(P - 1, -1, -1), torch.randperm(P, generator=gen),
-                 torch.randperm(P, generator=gen)):
+    for perm in [torch.arange(P - 1, -1, -1)] + [torch.randperm(P, generator=gen)
+                                                  for _ in range(n - 1)]:
         perm = perm.to(pts.device)
         moved = list(args)
         for i in (2, 3, 4, 5, 6):  # points, obs_cam, obs_uv, include, point_free
@@ -931,6 +941,50 @@ def _twin_order_spread(k, args, kw) -> float:
         back[perm] = torch.arange(P, device=pts.device)
         spread = max(spread, float((p2[back] - pts).norm(dim=-1).max()))
     return spread
+
+
+def _k4_rule(out, pts, ref, rpts, d: dict, spread, what: str) -> tuple:
+    """check_structure_ba's rule for one problem solved with the exit off
+    (its docstring says why), kernel (out [8], pts) against twin (ref,
+    rpts), host arrays: pose 1e-5 / 1e-4, cost 1 %, the same iterations,
+    median point difference < 1e-4, every point within the larger of 5e-2
+    and twice the twin's own reorder `spread` (None: 5e-2), the frozen
+    points unmoved, reprojections within 1e-2 px. Returns (the point
+    differences, the largest reprojection difference in px)."""
+    rv0, tv0, Xn, obs_cam, include = (d[key] for key in ("rv0", "tv0", "Xn", "obs_cam",
+                                                         "include"))
+    np.testing.assert_allclose(out[:3], ref[:3], atol=1e-5, err_msg=what)
+    np.testing.assert_allclose(out[3:6], ref[3:6], atol=1e-4, err_msg=what)
+    assert abs(out[6] - ref[6]) <= 0.01 * ref[6] + 1e-10, (what, out[6], ref[6])
+    assert out[7] == ref[7], (what, out[7], ref[7])
+    perr = np.linalg.norm(pts - rpts, axis=-1)
+    assert np.median(perr) < 1e-4, (what, np.median(perr))
+    point_tol = 5e-2 if spread is None else max(5e-2, 2 * spread)
+    assert perr.max() < point_tol, (what, perr.max(), point_tol)
+    assert np.array_equal(pts[:100], Xn[:100].astype(np.float32)), f"{what}: frozen points moved"
+
+    # What the data can see: each side's points in each side's cameras, at
+    # every included observation. A move along a weak depth direction does
+    # not show here; 1e-2 px is 30x what the twin alone gives between two
+    # orders of the points on the CPU (3e-4 px, with 9e-3 in coordinates).
+    def pixels(pose, P3):
+        r, tt = rv0.copy(), tv0.copy()
+        r[d["free"]], tt[d["free"]] = pose[:3], pose[3:6]
+        R = np.stack([_rotvec_matrix(w) for w in r])[obs_cam]
+        Xc = np.einsum("poij,pj->poi", R, P3.astype(np.float64)) + tt[obs_cam]
+        return 480.0 * Xc[..., :2] / Xc[..., 2:3]
+
+    px = np.abs(pixels(out, pts) - pixels(ref, rpts)).max(-1)[include].max()
+    assert px < 1e-2, f"{what}: reprojections differ by {px} px"
+    return perr, px
+
+
+def _k4_ops(iterations: int, n_included: int, P: int) -> int:
+    """K4's float32 operations: per included observation and iteration,
+    transform, project, camera and point Jacobians, and the Hpp, Y, Hcc, g
+    sums (~300); per point and iteration, the damped 3x3 inverse, Schur
+    terms and back substitution (~150)."""
+    return iterations * (300 * n_included + 150 * P)
 
 
 def check_structure_ba(dev) -> dict:
@@ -970,39 +1024,14 @@ def check_structure_ba(dev) -> dict:
 
     for P in (2432, 7296, 16384):
         args, kw, d = _k4_data(dev, P)
-        rv0, tv0, Xn, obs_cam, include = (d[key] for key in ("rv0", "tv0", "Xn", "obs_cam",
-                                                             "include"))
-        F = rv0.shape[0]
         out, pts = k.structure_ba_lm(*args, **kw, ftol=0.0)
         again = k.structure_ba_lm(*args, **kw, ftol=0.0)
         ref, rpts = k.structure_ba_lm_reference(*args, **kw, ftol=0.0)
         same = all(bool((a == b).all()) for a, b in zip((out, pts), again))
         assert same, f"K4 P={P}: two runs on the same inputs differ"
         out, pts, ref, rpts = [x.cpu().numpy() for x in (out, pts, ref, rpts)]
-        np.testing.assert_allclose(out[:3], ref[:3], atol=1e-5)
-        np.testing.assert_allclose(out[3:6], ref[3:6], atol=1e-4)
-        assert abs(out[6] - ref[6]) <= 0.01 * ref[6] + 1e-10, (out[6], ref[6])
-        assert out[7] == ref[7], (out[7], ref[7])
-        perr = np.linalg.norm(pts - rpts, axis=-1)
-        assert np.median(perr) < 1e-4, np.median(perr)
         spread = _twin_order_spread(k, args, kw) if P != 2432 else None
-        point_tol = 5e-2 if spread is None else max(5e-2, 2 * spread)
-        assert perr.max() < point_tol, (perr.max(), point_tol)
-        assert np.array_equal(pts[:100], Xn[:100].astype(np.float32)), "frozen points moved"
-
-        # What the data can see: each side's points in each side's cameras, at
-        # every included observation. A move along a weak depth direction does
-        # not show here; 1e-2 px is 30x what the twin alone gives between two
-        # orders of the points on the CPU (3e-4 px, with 9e-3 in coordinates).
-        def pixels(pose, P3):
-            r, tt = rv0.copy(), tv0.copy()
-            r[F - 1], tt[F - 1] = pose[:3], pose[3:6]
-            R = np.stack([_rotvec_matrix(w) for w in r])[obs_cam]
-            Xc = np.einsum("poij,pj->poi", R, P3.astype(np.float64)) + tt[obs_cam]
-            return 480.0 * Xc[..., :2] / Xc[..., 2:3]
-
-        px = np.abs(pixels(out, pts) - pixels(ref, rpts)).max(-1)[include].max()
-        assert px < 1e-2, f"K4 P={P}: reprojections differ by {px} px"
+        perr, px = _k4_rule(out, pts, ref, rpts, d, spread, f"K4 P={P}")
         if P == 2432:  # the main path's shape: the kernel table's error
             err = float(max(np.abs(out[:6] - ref[:6]).max(), perr.max()))
         log(f"K4 structure BA P={P} (10 iterations each): |pose| err "
@@ -1024,15 +1053,75 @@ def check_structure_ba(dev) -> dict:
     assert np.isfinite(pts2).all() and np.array_equal(pts2[:100], d["Xn"][:100].astype(np.float32))
     ms = cuda_ms(lambda: k.structure_ba_lm(*args, **kw))
     plain = cuda_ms(lambda: k.structure_ba_lm_reference(*args, **kw), rounds=1)
-    # Per included observation and iteration: transform, project, camera
-    # and point Jacobians, and the Hpp, Y, Hcc, g sums (~300 float32
-    # operations); per point: damped 3x3 inverse, Schur terms and back
-    # substitution (~150). Iterations as the main path runs them (exit on).
+    # Iterations as the main path runs them (exit on).
     P = args[2].shape[0]
-    ops = int(out2[7]) * (300 * int(d["include"].sum()) + 150 * P)
+    ops = _k4_ops(int(out2[7]), int(d["include"].sum()), P)
     return dict(name="structure_ba_lm", module=k, max_abs_err=err, ms=ms, plain_ms=plain,
                 library_ms=None,
                 **bound(nbytes(*args) + 8 * 4 + P * 12, {"f32": ops}),
+                source="racing_slam_tpu_torch/csrc/structure_ba_kernel.cu",
+                replaces="racing_slam_tpu/ops/pallas/structure_ba_kernel.py:336")
+
+
+def check_structure_ba_batched(dev) -> dict:
+    """K4 over S=8 problems in one launch of 8 clusters, the commit of 8
+    rows on one lockstep frame: each _k4_data's commit shape (P=2432, F=32)
+    with its own data (seeds 13..20) and free camera (each of the 4 newest
+    in turn). With the exit off, each problem's pose, cost, iterations and
+    points bit-equal to a launch of that problem alone, and held to the
+    twin by check_structure_ba's rule (_k4_rule, with each problem's own
+    twin reorder spread, over ten orders of its points: along the dolly's
+    forward motion the points near the epipole have almost no parallax,
+    and their depths drift 8-28 units in 10 iterations, by amounts that
+    float32 order decides; three orders of problem 5 read 6e-4 on the card
+    where ten read 1.46, and the kernel's 0.65 lies between); with the
+    exit on, as the main path runs it, each
+    problem bit-equal to its launch alone. Times (exit on): the batched
+    launch, the 8 single launches back to back, the batched twin. Bound:
+    check_structure_ba's operations summed over the problems, each at its
+    own iteration count. Printed: how many of the launch's 16-CTA clusters
+    the card holds at once (max_active_clusters); the others queue."""
+    import torch
+
+    from racing_slam_tpu_torch.ops.kernels import structure_ba as k
+
+    data = [_k4_data(dev, seed=13 + i, free=31 - i % 4) for i in range(MULTI_S)]
+    kw = data[0][1]
+    args = [torch.stack([dd[0][j] for dd in data]) for j in range(8)]
+    err = 0.0
+    for ftol in (0.0, None):
+        fkw = dict(kw) if ftol is None else dict(kw, ftol=ftol)
+        before = (k.launches, k.batched_launches)
+        out, pts = k.structure_ba_lm(*args, **fkw)
+        assert (k.launches, k.batched_launches) == (before[0] + 1, before[1] + 1), \
+            "K4 batched: not one launch"
+        for i, (row, _, _) in enumerate(data):
+            one, one_pts = k.structure_ba_lm(*row, **fkw)
+            assert bool((out[i] == one).all()) and bool((pts[i] == one_pts).all()), \
+                f"K4 batched problem {i} != its launch alone (ftol={ftol})"
+        if ftol is None:
+            break
+        ref, rpts = k.structure_ba_lm_reference(*args, **fkw)
+        out_h, pts_h, ref, rpts = [x.cpu().numpy() for x in (out, pts, ref, rpts)]
+        for i, (row, _, d) in enumerate(data):
+            spread = _twin_order_spread(k, row, kw, n=10)
+            perr, px = _k4_rule(out_h[i], pts_h[i], ref[i], rpts[i], d, spread,
+                                f"K4 batched problem {i}")
+            err = max(err, float(np.abs(out_h[i, :6] - ref[i, :6]).max()), float(perr.max()))
+    iters = out[:, 7].cpu().numpy().astype(int)
+    P = args[2].shape[1]
+    clusters = k.max_active_clusters(P, args[3].shape[2])
+    ms = cuda_ms(lambda: k.structure_ba_lm(*args, **kw))
+    singles = cuda_ms(lambda: [k.structure_ba_lm(*row, **kw) for row, _, _ in data])
+    plain = cuda_ms(lambda: k.structure_ba_lm_reference(*args, **kw), n=2, rounds=1, warmup=1)
+    ops = sum(_k4_ops(int(it), int(d["include"].sum()), P) for it, (_, _, d) in zip(iters, data))
+    log(f"K4 batched S={MULTI_S} (P={P}, free cameras {[d['free'] for _, _, d in data]}): "
+        f"problems bit-equal to single launches (exit off and on), max err vs twin {err:.3e}, "
+        f"iterations {iters.tolist()}; {clusters} 16-CTA clusters co-resident on the card; "
+        f"one launch {ms:.4f} ms, {MULTI_S} single launches {singles:.4f} ms")
+    return dict(name=f"structure_ba_lm[S={MULTI_S}]", module=k, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=None, singles_ms=singles, co_resident_clusters=clusters,
+                **bound(nbytes(*args) + MULTI_S * (8 + P * 3) * 4, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/structure_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/structure_ba_kernel.py:336")
 
@@ -1625,8 +1714,8 @@ MULTI_PATHS = {
 # for an essential-path Slam frame and for each row of a lockstep frame
 # that takes the essential prediction (PERF.md section 6).
 RANSAC_SOLVER_SYNCS = 17
-# The kernels a lockstep frame launches batched (K6's batched calls are
-# counted by its own counter).
+# The kernels a lockstep frame launches batched (K4's and K6's batched
+# calls are counted by their own counters).
 LOCKSTEP = ("corner_frontend_fused", "guided_match_stage1", "motion_ba_lm")
 # LightGlue's attention sites: 2 layers x (self 0, self 1, cross 01, cross 10).
 LIGHTGLUE_SITES = 8
@@ -1650,20 +1739,25 @@ def multi_frontend(path: str, dev):
     return superpoint_frontend(dev) if _superpoint_path(path) else None
 
 
-def lockstep_launches(path: str) -> dict:
-    """The launches a lockstep frame of the multi path makes for all its
-    rows at once, by kernel: K1 once (none under SuperPoint), K2 and K3
+def lockstep_launches(path: str) -> tuple[dict, dict]:
+    """The launches the multi path makes for all its rows at once, by
+    kernel: (on every lockstep frame, on each lockstep frame where a row
+    commits). Every frame: K1 once (none under SuperPoint), K2 and K3
     twice (and K5 twice on the banded matcher); LightGlue's K6 once a
     site when every row takes the essential prediction, none when no row
-    does (adaptive's share depends on the data)."""
+    does (adaptive's share depends on the data). A frame with commits
+    adds, for its committing rows: K4 once at W=1 (none at W>1, where the
+    commit takes the window BA), and LightGlue's K6 once a site."""
     cfg = multi_config(path)
     want = {"corner_frontend_fused": int(not _superpoint_path(path)),
             "guided_match_stage1": 2, "motion_ba_lm": 2}
+    commit = {"structure_ba_lm": int(cfg.local_ba_window <= 1)}
     if cfg.matching_backend == "banded":
         want["guided_match_stage1_banded"] = 2
     if cfg.matcher == "lightglue" and cfg.pose_prediction != "adaptive":
         want["flash_mha"] = LIGHTGLUE_SITES * int(cfg.essential_matrix_estimation)
-    return want
+        commit["flash_mha"] = LIGHTGLUE_SITES
+    return want, commit
 
 
 def _zero_counts(kernels: list) -> None:
@@ -1679,7 +1773,8 @@ def _launch_counts(kernels: list) -> dict:
 
 
 def _batched_counts(kernels: list) -> dict:
-    """{module name: calls with a leading S} of the kernels that count them (K6)."""
+    """{module name: calls with a leading S} of the kernels that count them
+    (K4, K6)."""
     return {kern["module"].__name__: kern["module"].batched_launches for kern in kernels
             if hasattr(kern["module"], "batched_launches")}
 
@@ -1697,12 +1792,15 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     lockstep_launches a lockstep frame (one K1, two K2 and two K3, two K5
     on the banded matcher, no K1 under SuperPoint, eight K6 calls where
     every row takes the essential prediction under LightGlue), each for
-    all 8 rows, and, under torch.cuda's sync debug mode, one synchronising
+    all 8 rows, and on each lockstep frame where rows commit one K4 call
+    for them at W=1 (none at W>1) and eight K6 calls under LightGlue;
+    single K4 launches only at the bootstraps and re-bootstraps; and,
+    under torch.cuda's sync debug mode, one synchronising
     call a lockstep frame besides the essential prediction's solver checks
     (at most RANSAC_SOLVER_SYNCS a row that takes it); a re-bootstrap's own
     are counted apart. The launches of the
-    lockstep frames (batched) and of the bootstraps, re-bootstraps and
-    per-row commits (K4, LightGlue's K6: single) are counted apart. Per row: ATE, coverage,
+    lockstep frames (batched, the commits' included) and of the bootstraps
+    and re-bootstraps (single) are counted apart. Per row: ATE, coverage,
     re-inits, rotation error (utils.metrics.rotation_errors_deg over each
     segment's keyframes), frames on the essential prediction and banded
     fallbacks. Returns (the run's record, the MultiSlam)."""
@@ -1738,6 +1836,16 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
         reinit_warnings.update(id(w) for w in caught[n_caught:])
 
     ms._reinit_sequence = counted_reinit
+    commit_frames = 0  # lockstep frames on which a row committed
+    run_step = ms._step
+
+    def counted_step(*a, **kw):
+        nonlocal commit_frames
+        states, info = run_step(*a, **kw)
+        commit_frames += any(info.is_keyframe)
+        return states, info
+
+    ms._step = counted_step
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1747,6 +1855,7 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
         t_track = time.time() - t1
         torch.cuda.set_sync_debug_mode("default")
     ms._reinit_sequence = run_reinit
+    ms._step = run_step
     flagged = [w for w in caught
                if _synchronising(w) and id(w) not in reinit_warnings]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
@@ -1756,7 +1865,7 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     lockstep, single_run = Counter(), Counter(single)
     for m, c in run.items():
         base = names[m]
-        if m in batched_calls:  # K6: its batched calls are the lockstep frames'
+        if m in batched_calls:  # K4, K6: their batched calls are the lockstep frames'
             lockstep[base] += batched_calls[m]
             single_run[m] += c - batched_calls[m]
             continue
@@ -1764,8 +1873,10 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
         lockstep[base] += (c - reinit[m]) if batched else 0
         single_run[m] += reinit[m] if batched else c
     single_launches = {names[m]: c for m, c in single_run.items()}
-    want = lockstep_launches(path)
-    per_frame = {k: lockstep[k] / max(n, 1) for k in want}
+    want, at_commits = lockstep_launches(path)
+    per_frame = {k: (lockstep[k] - at_commits.get(k, 0) * commit_frames) / max(n, 1)
+                 for k in want}
+    k4_module = next(m for m, b in names.items() if b == "structure_ba_lm")
     fallbacks = ms.banded_fallbacks()
     seqs = []
     for i, (f, gt) in enumerate(worlds):
@@ -1789,10 +1900,18 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
                sync_debug_flagged_outside_solvers=len(flagged) - solver_syncs,
                sync_sources=dict(sources.most_common(8)),
                lockstep_launches=dict(lockstep), single_launches=single_launches,
-               launches_per_lockstep_frame=per_frame, reinits=len(ms.segments),
+               launches_per_lockstep_frame=per_frame, commit_frames=commit_frames,
+               k4_per_commit_frame=lockstep["structure_ba_lm"] / max(commit_frames, 1),
+               reinits=len(ms.segments),
                finished=int(ms.finished.sum()), sequences_acc=seqs)
     log(f"{path}: " + json.dumps(res))
     assert per_frame == {k: float(v) for k, v in want.items()}, (path, per_frame)
+    for k, v in at_commits.items():  # the commits' batched calls, each frame with commits
+        assert lockstep[k] == v * commit_frames + want.get(k, 0) * n, (path, k, lockstep[k])
+    # Single K4 launches: the 8 bootstraps and the re-bootstraps' own.
+    assert single_launches["structure_ba_lm"] == len(frames) + reinit[k4_module], \
+        (path, single_launches, dict(reinit))
+    assert reinit[k4_module] <= len(ms.segments), (path, dict(reinit), len(ms.segments))
     # One host read a lockstep frame besides the essential prediction's
     # solvers, whose host checks cost each row that takes it as many as a
     # Slam frame's RANSAC.
@@ -1839,7 +1958,8 @@ def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) ->
     sequence, then run_batched to the end of the worlds (_multi_run's
     assertions); every sequence's ATE <= 10 % and coverage >= 0.85.
     Printed: the same worlds through MultiSlam and one by one through Slam
-    (one_by_one), under constant velocity and under constant position, and,
+    (one_by_one), under constant velocity and under constant position,
+    every row bit-equal to its Slam to the end on both (asserted), and,
     from this call, total and per-sequence fps at S=1 and S=8 alternating
     1, 8, 8, 1 (tools/scaling.alternate)."""
     from racing_slam_tpu_torch.tools.scaling import alternate
@@ -1856,6 +1976,8 @@ def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) ->
         p: one_by_one(dev, cam, worlds, path_config("classical", pose_prediction=p), p,
                       rows if p == cfg.pose_prediction else None)
         for p in ("constant_velocity", "constant_position")}
+    for p, obo in res["one_by_one"].items():
+        assert obo["rows_bit_equal_to_the_end"] == len(worlds), (p, obo["first_departure"])
     fps = alternate(cam, frames, cfg, dev, len(frames), BATCH, MULTI_FRAMES)
     log("multi fps, S=1 / S=8 alternating: " + json.dumps(fps))
     res["fps"] = fps
@@ -1917,6 +2039,18 @@ def one_by_one(dev, cam, worlds: list, cfg, label: str, batched_rows: list | Non
     from racing_slam_tpu_torch.utils.checkpoint import _named_leaves
     from racing_slam_tpu_torch.utils.video import ArraySource
 
+    def departures(states, slams) -> dict:
+        """{row: the leaves of MultiSlam's row that differ from its Slam's},
+        for the rows that differ; each leaf compared for all rows at once
+        and the flags read back in one copy."""
+        multi = _named_leaves(states)
+        single = [_named_leaves(sl.state) for sl in slams]
+        flags = torch.stack([(x == torch.stack([ls[k] for ls in single])).reshape(
+            len(slams), -1).all(dim=1) for k, x in multi.items()], dim=1).cpu().numpy()
+        names = list(multi)
+        return {i: [names[j] for j in np.nonzero(~row)[0]] for i, row in enumerate(flags)
+                if not row.all()}
+
     def differing(a, b) -> list:
         la, lb = _named_leaves(a), _named_leaves(b)
         return [k for k in la if not torch.equal(la[k], lb[k])]
@@ -1933,9 +2067,9 @@ def one_by_one(dev, cam, worlds: list, cfg, label: str, batched_rows: list | Non
     j = -1
     slam_frames = flagged = 0
     while True:
-        for i, sl in enumerate(slams):
-            row = state_row(ms.states, i)
-            if first[i] is None and (d := differing(row, sl.state)):
+        for i, d in departures(ms.states, slams).items():
+            row, sl = state_row(ms.states, i), slams[i]
+            if first[i] is None:
                 first[i] = dict(frame=j, leaves=d,
                                 rvec_diff=float((row.last_rvec - sl.state.last_rvec).abs().max()),
                                 t_diff=float((row.last_t - sl.state.last_t).abs().max()))
@@ -2351,7 +2485,8 @@ def main() -> int:
                check_match_banded(dev), check_attention(dev)]
     d256 = check_match(dev, D=256)
     kernels.append(dict(d256, name="guided_match_stage1[D=256]"))
-    batched = [check_match_batched(dev), check_motion_ba_batched(dev)]
+    batched = [check_match_batched(dev), check_motion_ba_batched(dev),
+               check_structure_ba_batched(dev)]
     b256 = check_match_batched(dev, D=256)
     batched[0]["d256"] = {key: b256[key] for key in ("max_abs_err", "ms", "singles_ms", "plain_ms",
                                                      "bound_ms")}
@@ -2398,9 +2533,9 @@ def main() -> int:
     # K2 calls: P=4096 at D=128 (bench.py's paths), D=256 (learned), P=16384
     # with the band's skip flag (scale). The multi paths' lockstep frames go
     # to the [S=8] rows (K2 at D=256 for multi_learned, at P=16384 for
-    # multi_scale; K6's batched calls), their bootstraps, re-bootstraps and
-    # per-row commits (K1, K4 and LightGlue's K6 at the single shapes) to
-    # the single rows.
+    # multi_scale; K4's and K6's batched calls, the commits' included),
+    # their bootstraps and re-bootstraps (K1, K4 and LightGlue's K6 at the
+    # single shapes) to the single rows.
     k2_paths = {"guided_match_stage1": ("classical", "lightglue", "headline", "adaptive",
                                         "essential"),
                 "guided_match_stage1[D=256]": ("learned",),
@@ -2430,7 +2565,8 @@ def main() -> int:
         if "train" in by_path:
             row["train"] = train_checks["shapes"][kern["name"]]
         row.update({key: kern[key] for key in ("d256", "ms_an_iteration", "prune", "singles_ms",
-                                               "skipped_ms") if key in kern})
+                                               "skipped_ms", "co_resident_clusters")
+                    if key in kern})
         table.append(row)
     log(f"chip_smoke wall time: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)

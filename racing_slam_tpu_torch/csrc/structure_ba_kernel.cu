@@ -49,6 +49,15 @@
 //   array is rewritten only after a barrier that every CTA passed after
 //   reading it.
 // - The back-substitution and the trial cost are one pass over the points.
+// - S problems of one shape (the keyframe commits of the rows that commit
+//   on one lockstep frame) are one launch of S clusters: grid (C, S), the
+//   cluster (C, 1, 1), blockIdx.y = problem. Each cluster reads its
+//   problem's operands at fixed strides, keeps its own slice of `scratch`,
+//   sums in the single launch's rank order and takes its own accept and
+//   exit decisions, so each problem gives the bits of its launch alone;
+//   clusters never wait on each other. The card holds only so many
+//   16-CTA clusters at once (slam_structure_ba_max_clusters); the rest
+//   queue behind them.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -185,6 +194,18 @@ structure_ba_cluster(const float* __restrict__ cam_rvec, const float* __restrict
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  // This cluster's problem: its operands at fixed strides.
+  const size_t b = blockIdx.y;
+  cam_rvec += b * F * 3;
+  cam_t += b * F * 3;
+  free_slot += b;
+  points += b * pb.P * 3;
+  pb.obs_cam += b * pb.P * pb.O;
+  pb.obs_uv += b * pb.P * pb.O * 2;
+  pb.include += b * pb.P * pb.O;
+  pb.point_free += b * pb.P;
+  out += b * 8;
+  points_out += b * pb.P * 3;
   float* s_R = smem;
   float* s_t = s_R + 9 * F_MAX;
   float* red = s_t + 3 * F_MAX;
@@ -194,7 +215,7 @@ structure_ba_cluster(const float* __restrict__ cam_rvec, const float* __restrict
   float* s_step = s_tot + NSUM;           // delta_c 6, trial pose 6, cost 1
   const size_t per_cta = point_bytes(share, pb.O);
   char* base = in_smem ? reinterpret_cast<char*>(smem + FIXED_FLOATS)
-                       : reinterpret_cast<char*>(scratch) + (size_t)rank * per_cta;
+                       : reinterpret_cast<char*>(scratch) + (b * C + rank) * per_cta;
   Local L;
   L.share = share;
   L.st = reinterpret_cast<float*>(base);
@@ -423,10 +444,42 @@ structure_ba_cluster(const float* __restrict__ cam_rvec, const float* __restrict
   cluster.sync();  // rank 0's slots stay alive until every CTA has read them
 }
 
+// Cluster and shared-memory attributes of the kernel, set once.
+cudaError_t set_attributes() {
+  static const cudaError_t err = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        structure_ba_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(structure_ba_cluster,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   SMEM_MAX);
+  }();
+  return err;
+}
+
+// The launch of S problems of P points as S clusters of `cluster` CTAs.
+cudaLaunchConfig_t launch_config(int S, int P, int O, int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  const int share = (P + cluster - 1) / cluster;
+  const bool in_smem = FIXED_FLOATS * 4 + point_bytes(share, O) <= SMEM_MAX;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, S, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = FIXED_FLOATS * 4 + (in_smem ? point_bytes(share, O) : 0);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
-// Bytes of global scratch the solve needs when its points' state does not
-// fit in shared memory (0 when it does).
+// Bytes of global scratch one problem needs when its points' state does
+// not fit in shared memory (0 when it does); S problems take S times this.
 SLAM_API size_t slam_structure_ba_scratch_bytes(int P, int O, int cluster) {
   if (cluster < 1 || O < 1 || P < 0) return 0;
   const int share = (P + cluster - 1) / cluster;
@@ -434,15 +487,33 @@ SLAM_API size_t slam_structure_ba_scratch_bytes(int P, int O, int cluster) {
   return dyn <= SMEM_MAX ? 0 : (size_t)cluster * point_bytes(share, O);
 }
 
+// How many clusters of the launch for P points the card holds at once
+// (cudaOccupancyMaxActiveClusters); a negative CUDA error code on failure.
+SLAM_API int slam_structure_ba_max_clusters(int P, int O, int cluster) {
+  if (O < 1 || P < 0 || cluster < 1 || cluster > C_MAX) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = set_attributes();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(1, P, O, cluster, nullptr, attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, structure_ba_cluster, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// S problems of one shape, each with its own operands at fixed strides
+// (cam_rvec, cam_t [S, F, 3], free_slot [S], points [S, P, 3], obs_cam,
+// include [S, P, O], obs_uv [S, P, O, 2], point_free [S, P]; out [S, 8],
+// points_out [S, P, 3]; scratch S times slam_structure_ba_scratch_bytes),
+// in one launch; S = 1 is the single solve.
 SLAM_API int slam_structure_ba(const float* cam_rvec, const float* cam_t,
                                const long long* free_slot, const float* points,
                                const long long* obs_cam, const float* obs_uv,
                                const uint8_t* include, const uint8_t* point_free, float* out,
-                               float* points_out, float* scratch, int F, int P, int O, float fx,
-                               float cx, float cy, float lam0, float huber, float ftol,
+                               float* points_out, float* scratch, int S, int F, int P, int O,
+                               float fx, float cx, float cy, float lam0, float huber, float ftol,
                                int max_iters, int cluster, cudaStream_t stream) {
-  if (F < 1 || F > F_MAX || P < 0 || O < 1 || max_iters < 0 || cluster < 1 ||
-      cluster > C_MAX)
+  if (S < 1 || S > 65535 || F < 1 || F > F_MAX || P < 0 || O < 1 || max_iters < 0 ||
+      cluster < 1 || cluster > C_MAX)
     return (int)cudaErrorInvalidValue;
   Problem pb;
   pb.obs_cam = obs_cam;
@@ -459,28 +530,10 @@ SLAM_API int slam_structure_ba(const float* cam_rvec, const float* cam_t,
   const int share = (P + cluster - 1) / cluster;
   const int in_smem = slam_structure_ba_scratch_bytes(P, O, cluster) == 0;
   if (!in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t dyn = FIXED_FLOATS * 4 + (in_smem ? point_bytes(share, O) : 0);
-  static const cudaError_t attr_err = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        structure_ba_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e != cudaSuccess ? e
-                            : cudaFuncSetAttribute(structure_ba_cluster,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   SMEM_MAX);
-  }();
+  const cudaError_t attr_err = set_attributes();
   if (attr_err != cudaSuccess) return (int)attr_err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = dyn;
-  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = launch_config(S, P, O, cluster, stream, attr);
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, structure_ba_cluster, cam_rvec, cam_t, free_slot, points, pb, out,
                          points_out, scratch, F, share, in_smem, lam0, ftol, max_iters);

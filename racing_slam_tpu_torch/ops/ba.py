@@ -568,11 +568,23 @@ def structure_ba(
     huber_delta: float = HUBER_DELTA,
 ) -> BAResult:
     """Schur LM with ONE free camera (`free_slot`, a 0-d index tensor) and
-    free points (kernel K4). `prob.cam_free` is ignored."""
+    free points (kernel K4). `prob.cam_free` is ignored. C problems of one
+    shape, stacked on a leading axis of every field with a [C] `free_slot`,
+    are one K4 launch; each problem's result is its solve alone, to the
+    bit."""
     from .kernels.structure_ba import structure_ba_lm
 
-    include, _ = obs_include(prob)
-    free_slot = torch.as_tensor(free_slot, device=prob.points.device).long().reshape(())
+    if prob.points.dim() == 3:  # obs_include row by row
+        C, F = prob.cam_rvec.shape[:2]
+        safe_cam = torch.clamp(prob.obs_cam, 0, F - 1).long()
+        in_cam = torch.gather(prob.cam_in_problem, 1, safe_cam.flatten(1)).reshape(safe_cam.shape)
+        include = prob.obs_valid & in_cam & prob.point_in_problem[..., None]
+        free_slot = free_slot.long().reshape(C)
+        idx = (torch.arange(C, device=free_slot.device), free_slot)
+    else:
+        include, _ = obs_include(prob)
+        free_slot = torch.as_tensor(free_slot, device=prob.points.device).long().reshape(())
+        idx = (free_slot.reshape(1),)
     out, points = structure_ba_lm(
         prob.cam_rvec.float().contiguous(), prob.cam_t.float().contiguous(),
         prob.points.float().contiguous(), prob.obs_cam.long().contiguous(),
@@ -581,11 +593,10 @@ def structure_ba(
         fx=cam.fx, cx=cam.cx, cy=cam.cy, max_iters=max_iters,
         huber_delta=huber_delta, init_lambda=init_lambda,
     )
-    idx = free_slot.reshape(1)
     return BAResult(
-        cam_rvec=prob.cam_rvec.index_put((idx,), out[None, :3]),
-        cam_t=prob.cam_t.index_put((idx,), out[None, 3:6]),
+        cam_rvec=prob.cam_rvec.index_put(idx, out[..., :3].reshape(-1, 3)),
+        cam_t=prob.cam_t.index_put(idx, out[..., 3:6].reshape(-1, 3)),
         points=points,
-        cost=out[6],
-        num_residuals=include.sum(),
+        cost=out[..., 6],
+        num_residuals=include.sum(dim=(-2, -1)),
     )

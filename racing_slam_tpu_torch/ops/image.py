@@ -90,12 +90,14 @@ def max_pool_same(img: torch.Tensor, size: int) -> torch.Tensor:
     return pool_cols(pool_rows(img))
 
 
-def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor, stacked: bool = False) -> torch.Tensor:
     """Sample an [H, W] image at continuous (x, y) [..., 2]; coords clamped.
 
     An [H, W, C] image samples every channel at once ([..., C] out), with
-    the same arithmetic per channel as the [H, W] case."""
-    H, W = img.shape[:2]
+    the same arithmetic per channel as the [H, W] case. With `stacked`,
+    S images [S, H, W] each at its own points [S, ..., 2], with the same
+    arithmetic per point as a single image."""
+    H, W = img.shape[int(stacked):int(stacked) + 2]
     x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
     x0 = torch.floor(x)
@@ -106,13 +108,16 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     y0i = y0.long()
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    flat = img.reshape(H * W, *img.shape[2:])
-    extra = (1,) * (img.dim() - 2)
+    flat = img.reshape(-1, *img.shape[int(stacked) + 2:])
+    extra = (1,) * (img.dim() - 2 - int(stacked))
     fx = fx.reshape(fx.shape + extra)
     fy = fy.reshape(fy.shape + extra)
+    if stacked:  # each image's pixels follow the previous one's in `flat`
+        S = img.shape[0]
+        base = torch.arange(S, device=img.device).reshape(S, *[1] * (xy.dim() - 2)) * (H * W)
 
     def g(yy, xx):
-        return flat[yy * W + xx]
+        return flat[base + yy * W + xx] if stacked else flat[yy * W + xx]
 
     return (
         g(y0i, x0i) * (1 - fx) * (1 - fy)

@@ -46,9 +46,9 @@ SIGNATURES = {
     # pose0, kp_uv, xyz, valid, out, S, K, fx, cx, cy, lam0, huber, ftol, iters, stream
     "slam_motion_ba": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     # cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free,
-    # out, points_out, scratch|NULL, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
+    # out, points_out, scratch|NULL, S, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
     # cluster, stream
-    "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
+    "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
     # q, k, v, mask_k, out, workspace, S, Kq, Kk, H, dh, chunks, scale, stream
     "slam_flash_mha_seq": [_P] * 6 + [_I] * 6 + [_F, _P],
 }
@@ -128,6 +128,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.slam_structure_ba_scratch_bytes.argtypes = [_I, _I, _I]
             handle.slam_structure_ba_scratch_bytes.restype = ctypes.c_size_t
+            handle.slam_structure_ba_max_clusters.argtypes = [_I, _I, _I]
+            handle.slam_structure_ba_max_clusters.restype = ctypes.c_int
             handle.slam_flash_mha_seq_workspace_bytes.argtypes = [_I] * 6
             handle.slam_flash_mha_seq_workspace_bytes.restype = ctypes.c_size_t
             handle.slam_error_string.argtypes = [ctypes.c_int]

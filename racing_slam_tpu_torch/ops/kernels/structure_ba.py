@@ -23,6 +23,13 @@ every CTA takes the same decisions and two runs give the same bits. One
 launch per solve, no atomics, no host read; two cluster barriers an
 iteration. A refused cluster launch raises; there is no other path on the
 card. 16 CTAs measured faster than 8 (PERF.md).
+
+Batched: C solves of one shape (the keyframe commits of the rows that
+commit on one lockstep frame) take a leading C on every operand,
+cam_rvec [C, F, 3], ..., free_slot [C], and return [C, 8] and [C, P, 3],
+in one launch of C clusters; each problem equals its solve alone to the
+bit. `launches` counts every launch, `batched_launches` the launches with
+a leading C (one each, whatever C is).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..ba import (
 from . import _build
 
 launches = 0
+batched_launches = 0  # the launches of `launches` that solved C problems at once
 CLUSTER = 16  # CTAs of the cluster; 8 is accepted by the kernel
 
 
@@ -61,7 +69,15 @@ def structure_ba_lm_reference(
     ftol: float = FUNCTION_TOLERANCE,
     init_lambda: float = 1e-4,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch twin: ([8] free pose + cost + iterations, [P, 3] points)."""
+    """Plain-PyTorch twin: ([8] free pose + cost + iterations, [P, 3] points),
+    or ([C, 8], [C, P, 3]) for leading-C operands, problem by problem."""
+    if points.dim() == 3:
+        outs = [structure_ba_lm_reference(*row, fx=fx, cx=cx, cy=cy, max_iters=max_iters,
+                                          huber_delta=huber_delta, ftol=ftol,
+                                          init_lambda=init_lambda)
+                for row in zip(cam_rvec, cam_t, points, obs_cam, obs_uv, include, point_free,
+                               free_slot)]
+        return torch.stack([o for o, _ in outs]), torch.stack([x for _, x in outs])
     P, O = obs_cam.shape
     F = cam_rvec.shape[0]
     dev = points.device
@@ -149,39 +165,56 @@ def structure_ba_lm(
     ftol: float = FUNCTION_TOLERANCE,
     init_lambda: float = 1e-4,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Schur LM solve: ([8] pose + cost + iterations, [P, 3] points)."""
+    """Fused Schur LM solve: ([8] pose + cost + iterations, [P, 3] points),
+    or ([C, 8], [C, P, 3]) for C problems given leading-C operands (one
+    launch)."""
     kwargs = dict(fx=fx, cx=cx, cy=cy, max_iters=max_iters, huber_delta=huber_delta,
                   ftol=ftol, init_lambda=init_lambda)
     tensors = (cam_rvec, cam_t, points, obs_cam, obs_uv, include, point_free, free_slot)
     if _build.device_kind(*tensors) == "cpu":
         return structure_ba_lm_reference(*tensors, **kwargs)
-    F = cam_rvec.shape[0]
-    P, O = obs_cam.shape
+    lead = tuple(free_slot.shape)  # () or (C,)
+    if len(lead) > 1:
+        raise ValueError(f"free_slot: expected [] or [C], got {lead}")
+    C = lead[0] if lead else 1
+    F = cam_rvec.shape[-2]
+    P, O = obs_cam.shape[-2:]
     if F > 64:
         raise ValueError(f"structure_ba kernel takes at most 64 cameras, got {F}")
     obs_cam = torch.clamp(obs_cam, 0, F - 1)
-    _build.expect(cam_rvec, "cam_rvec", torch.float32, (F, 3))
-    _build.expect(cam_t, "cam_t", torch.float32, (F, 3))
-    _build.expect(points, "points", torch.float32, (P, 3))
-    _build.expect(obs_cam, "obs_cam", torch.int64, (P, O))
-    _build.expect(obs_uv, "obs_uv", torch.float32, (P, O, 2))
-    _build.expect(include, "include", torch.bool, (P, O))
-    _build.expect(point_free, "point_free", torch.bool, (P,))
-    _build.expect(free_slot, "free_slot", torch.int64, ())
+    _build.expect(cam_rvec, "cam_rvec", torch.float32, (*lead, F, 3))
+    _build.expect(cam_t, "cam_t", torch.float32, (*lead, F, 3))
+    _build.expect(points, "points", torch.float32, (*lead, P, 3))
+    _build.expect(obs_cam, "obs_cam", torch.int64, (*lead, P, O))
+    _build.expect(obs_uv, "obs_uv", torch.float32, (*lead, P, O, 2))
+    _build.expect(include, "include", torch.bool, (*lead, P, O))
+    _build.expect(point_free, "point_free", torch.bool, (*lead, P))
+    _build.expect(free_slot, "free_slot", torch.int64, lead)
     dev = points.device
-    out = torch.empty((8,), dtype=torch.float32, device=dev)
-    points_out = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((*lead, 8), dtype=torch.float32, device=dev)
+    points_out = torch.empty((*lead, P, 3), dtype=torch.float32, device=dev)
     lib = _build.lib()
-    n_scratch = lib.slam_structure_ba_scratch_bytes(P, O, CLUSTER)
+    n_scratch = C * lib.slam_structure_ba_scratch_bytes(P, O, CLUSTER)
     scratch = torch.empty((n_scratch // 4,), dtype=torch.float32, device=dev) if n_scratch else None
     err = lib.slam_structure_ba(
         _build.ptr(cam_rvec), _build.ptr(cam_t), _build.ptr(free_slot), _build.ptr(points),
         _build.ptr(obs_cam), _build.ptr(obs_uv), _build.ptr(include), _build.ptr(point_free),
-        _build.ptr(out), _build.ptr(points_out), _build.ptr(scratch), F, P, O, float(fx),
+        _build.ptr(out), _build.ptr(points_out), _build.ptr(scratch), C, F, P, O, float(fx),
         float(cx), float(cy), float(init_lambda), float(huber_delta), float(ftol),
         int(max_iters), CLUSTER, _build.stream(dev),
     )
     _build.check(err, "structure_ba_lm")
-    global launches
+    global launches, batched_launches
     launches += 1
+    batched_launches += bool(lead)
     return out, points_out
+
+
+def max_active_clusters(P: int, O: int) -> int:
+    """How many of the solve's CLUSTER-CTA clusters for P points x O
+    observations the card holds at once (cudaOccupancyMaxActiveClusters);
+    the problems of a batched launch past that wait for a free cluster."""
+    n = _build.lib().slam_structure_ba_max_clusters(P, O, CLUSTER)
+    if n < 0:
+        _build.check(-n, "structure_ba max_active_clusters")
+    return n

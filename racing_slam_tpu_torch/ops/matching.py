@@ -289,5 +289,8 @@ def _stage2(best_k: torch.Tensor, best_d: torch.Tensor, P: int, K: int) -> MapMa
 def unmatched_mask(
     matches: FrameMatches, kp1_matched: torch.Tensor, kp2_matched: torch.Tensor
 ) -> torch.Tensor:
-    """Frame matches whose two keypoints both lack a map association."""
+    """Frame matches whose two keypoints both lack a map association; for
+    one pair, or S pairs with a leading S."""
+    if kp1_matched.dim() == 2:
+        return matches.valid & ~gather_rows(kp1_matched, matches.train_idx) & ~kp2_matched
     return matches.valid & ~kp1_matched[matches.train_idx] & ~kp2_matched

@@ -4,8 +4,9 @@ The deployment shape is a fleet: S independent sequences tracked at once,
 each with its own SlamState, stacked on a leading axis and stepped in
 lockstep by one batched step (slam.pipeline.slam_step_multi), so that the
 S sequences share each kernel launch: K1 once and K2 and K3 twice a
-lockstep frame, whatever S is. The JAX package `vmap`s its step over the
-sequence axis and shards that axis over the mesh's 'seq' devices.
+lockstep frame, whatever S is, and K4 once for the rows that commit on
+it. The JAX package `vmap`s its step over the sequence axis and shards
+that axis over the mesh's 'seq' devices.
 
 Over several processes (parallel.mesh.initialize_distributed), every rank
 constructs MultiSlam with the videos of its own sequence rows; its rows
@@ -83,7 +84,10 @@ class MultiSlam:
     over the rows), the classical and the learned frontend
     (`models.superpoint.SuperPointFrontend` over the S frames) and both
     frame matchers (`matcher="lightglue"`: kernel K6 over the rows that
-    take the essential prediction). The Slams share one frontend (the
+    take the essential prediction). The rows that commit on a lockstep
+    frame commit together: one K4 launch for those whose commit takes the
+    reference shape, LightGlue's K6 once a site over their pairs, the
+    window BA a row at a time. The Slams share one frontend (the
     first Slam's classical one when `frontend` is None), and so one frame
     matcher, whose LightGlue weights load once. Row i draws its
     RANSAC uniforms from its own Slam's generator, on the frames where it

@@ -78,18 +78,19 @@ from .frontend import ClassicalFrontend, LightGlueMatcher
 from .state import (
     I64,
     Features,
+    KeyframeStore,
     SlamState,
     add_associations,
     create_points,
-    get_row,
     keyframe_reprojection_error,
     point_reprojection_errors,
     point_reprojection_errors_sel,
     remove_points,
+    row_of,
     set_drop,
-    set_state_row,
     stack_states,
     state_row,
+    take,
     tree_map,
     write_keyframe,
 )
@@ -141,6 +142,100 @@ def _huber(cfg: SlamConfig, cam: Camera) -> float:
     return HUBER_DELTA / cam.fx if cfg.huber_mode == "pixel" else HUBER_DELTA
 
 
+def _ba_problem(kfs, m, sel: torch.Tensor, sel_ok: torch.Tensor, slot) -> BAProblem:
+    """The commit BA's problem over the selected points `sel` ([n] slots,
+    `sel_ok` the real ones), every keyframe in it and `slot` free; C
+    stacked problems for stacked states (sel [C, n], slot [C])."""
+    stacked = sel.dim() == 2
+    F = kfs.valid.shape[-1]
+    obs_kf = take(m.obs_kf, sel, stacked=stacked)
+    obs_kp = take(m.obs_kp, sel, stacked=stacked)
+    return BAProblem(
+        cam_rvec=kfs.rvec,
+        cam_t=kfs.t,
+        points=take(m.pos, sel, stacked=stacked),
+        obs_cam=obs_kf,
+        obs_uv=take(kfs.kp_xy, obs_kf, obs_kp, stacked=stacked),
+        obs_valid=take(m.obs_valid, sel, stacked=stacked) & sel_ok[..., None],
+        cam_free=torch.arange(F, device=sel.device) == slot[..., None],
+        cam_in_problem=kfs.valid,
+        point_free=sel_ok,
+        point_in_problem=sel_ok,
+    )
+
+
+def _k4_step(kfs, m, slot, K: int, *, cam: Camera, cfg: SlamConfig):
+    """The reference shape: only the new keyframe free, the points it sees
+    free, compacted to <= Pc slots (kernel K4). For one state, or C stacked
+    ones in one K4 launch. Returns (cam_rvec, cam_t, map positions)."""
+    stacked = m.valid.dim() == 2
+    P = m.valid.shape[-1]
+    sel, sel_ok = m.ba_point_selection(slot[..., None, None],
+                                       min(P, cfg.ba_commit_budget or -(-K // 128) * 128))
+    res = structure_ba(cam, _ba_problem(kfs, m, sel, sel_ok, slot), slot,
+                       max_iters=cfg.ba_iters, huber_delta=_huber(cfg, cam))
+    pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points,
+                   stacked=stacked)
+    return res.cam_rvec, res.cam_t, pos
+
+
+def _window_step(kfs, m, slot, *, cam: Camera, cfg: SlamConfig):
+    """The W newest keyframes free (two always stay frozen as gauge
+    anchors), over the points they observe (window_ba), for one state.
+    Returns (cam_rvec, cam_t, map positions)."""
+    P = m.valid.shape[0]
+    W = cfg.local_ba_window
+    newest_first = torch.argsort(
+        torch.where(kfs.valid, -kfs.frame_index, torch.full_like(kfs.frame_index, 1 << 30)),
+        stable=True)
+    n_free = torch.clamp(torch.sum(kfs.valid) - 2, 1, W)
+    free_slots = torch.where(torch.arange(W, device=slot.device) < n_free, newest_first[:W],
+                             torch.full_like(newest_first[:W], -1))
+    sel, sel_ok = m.ba_point_selection_mask(m.observed_by_any(free_slots) & m.valid,
+                                            min(P, cfg.window_ba_budget))
+    res = window_ba(cam, _ba_problem(kfs, m, sel, sel_ok, slot), free_slots,
+                    max_iters=cfg.ba_iters, huber_delta=_huber(cfg, cam))
+    pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points)
+    return res.cam_rvec, res.cam_t, pos
+
+
+def _commit_ba(kfs, m, slot, K: int, *, cam: Camera, cfg: SlamConfig, commit_no):
+    """The commit BA: the window of the W newest keyframes (W > 1, on the
+    hybrid cadence's window turns only) or the reference shape (K4).
+    Stacked states (commit_no: a list, or None) take K4 in one launch for
+    every row whose commit takes the reference shape and window_ba one row
+    at a time for the others (window_ba is plain PyTorch)."""
+    W = cfg.local_ba_window
+    if W > 1 and cfg.window_ba_every > 1 and commit_no is None:
+        raise ValueError("window_ba_every > 1 needs the commit number (commit_no)")
+
+    def takes_window(no) -> bool:
+        return W > 1 and (cfg.window_ba_every <= 1 or no % cfg.window_ba_every == 0)
+
+    if m.valid.dim() == 1:
+        if takes_window(commit_no):
+            return _window_step(kfs, m, slot, cam=cam, cfg=cfg)
+        return _k4_step(kfs, m, slot, K, cam=cam, cfg=cfg)
+    C = m.valid.shape[0]
+    window = [takes_window(None if commit_no is None else commit_no[i]) for i in range(C)]
+    if not any(window):
+        return _k4_step(kfs, m, slot, K, cam=cam, cfg=cfg)
+    out = {}
+    k4 = [i for i in range(C) if not window[i]]
+    if k4:  # the rows that take K4, stacked (the solve reads no descriptors)
+        def sub(x):
+            return torch.stack([x[i] for i in k4])
+
+        kf4 = KeyframeStore(*[None if f == "desc" else sub(x) for f, x in zip(kfs._fields, kfs)])
+        res = _k4_step(kf4, tree_map(sub, m), sub(slot), K, cam=cam, cfg=cfg)
+        out.update({i: [x[j] for x in res] for j, i in enumerate(k4)})
+    for i in range(C):
+        if window[i]:
+            out[i] = _window_step(tree_map(lambda x: x[i], kfs), tree_map(lambda x: x[i], m),
+                                  slot[i], cam=cam, cfg=cfg)
+    return tuple(torch.stack(z) for z in zip(*(out[i] for i in range(C))))
+
+
 def _commit_keyframe(
     state: SlamState,
     img: torch.Tensor,
@@ -152,14 +247,24 @@ def _commit_keyframe(
     cam: Camera,
     cfg: SlamConfig,
     matcher,
-    commit_no: int | None = None,
+    commit_no: int | list | None = None,
 ) -> SlamState:
     """The keyframe path: eviction + archive, associations, triangulation,
     commit BA (one free camera, or the window of the W newest), cull and
     obs-descriptor refresh. `commit_no` is the number of keyframes written
     since the bootstrap, the bootstrap's two included (arch_count + num_kf
     on the device); only the hybrid cadence (`window_ba_every > 1`) needs
-    it, and `Slam` counts it on the host."""
+    it, and `Slam` counts it on the host.
+
+    For C stacked states (a leading C on every leaf and on `img`, `feat`,
+    `rvec`, `t`, `matches`; `commit_no` a list) each step runs once over
+    the C rows, each row as it would alone: the frame match over the C
+    pairs, kernel K4 in one launch for the rows that take it (_commit_ba).
+    The cull's reprojection errors run one row at a time: a library
+    product and the rotations' sines round by their batch's shape on the
+    CPU."""
+    stacked = state.map.valid.dim() == 2
+    lead = state.map.valid.shape[:-1]
     F = cfg.max_keyframes
     kfs, m = state.kfs, state.map
     dev = rvec.device
@@ -168,19 +273,22 @@ def _commit_keyframe(
     # Fill free slots first; at capacity evict the OLDEST keyframe, archiving
     # its pose (the archive write is dropped when nothing is evicted).
     big = torch.full_like(kfs.frame_index, torch.iinfo(I64).max)
-    oldest = torch.argmin(torch.where(kfs.valid, kfs.frame_index, big))
+    oldest = torch.argmin(torch.where(kfs.valid, kfs.frame_index, big), dim=-1)
     slot = torch.where(state.num_kf < F, state.num_kf, oldest)
-    A = state.arch_frame_index.shape[0]
+    A = state.arch_frame_index.shape[-1]
     evict = state.num_kf >= F
-    aidx = torch.where(evict, state.arch_count, torch.full_like(state.arch_count, A)).reshape(1)
-    arch_rvec = set_drop(state.arch_rvec, aidx, get_row(kfs.rvec, oldest)[None])
-    arch_t = set_drop(state.arch_t, aidx, get_row(kfs.t, oldest)[None])
-    arch_fi = set_drop(state.arch_frame_index, aidx, get_row(kfs.frame_index, oldest)[None])
+    aidx = torch.where(evict, state.arch_count, torch.full_like(state.arch_count, A))[..., None]
+    arch_rvec = set_drop(state.arch_rvec, aidx, row_of(kfs.rvec, oldest, stacked)[..., None, :],
+                         stacked=stacked)
+    arch_t = set_drop(state.arch_t, aidx, row_of(kfs.t, oldest, stacked)[..., None, :],
+                      stacked=stacked)
+    arch_fi = set_drop(state.arch_frame_index, aidx,
+                       row_of(kfs.frame_index, oldest, stacked)[..., None], stacked=stacked)
     arch_count = state.arch_count + evict.to(I64)
 
     # Scrub observations of the evicted slot; drop points left unobserved.
-    evicted_obs = m.observed_by(slot) & m.valid
-    m = m._replace(obs_valid=m.obs_valid & (m.obs_kf != slot))
+    evicted_obs = m.observed_by(slot[..., None, None]) & m.valid
+    m = m._replace(obs_valid=m.obs_valid & (m.obs_kf != slot[..., None, None]))
     orphan = m.valid & ~torch.any(m.obs_valid, dim=-1)
     m, kfs = remove_points(m, kfs, orphan)
 
@@ -190,71 +298,32 @@ def _commit_keyframe(
                          state.frame_count)
     m = add_associations(m, slot, matches, match_ok, kfs.frame_index, policy=cfg.obs_policy)
 
-    K = feat.xy.shape[0]
+    K = feat.xy.shape[-2]
     new_slots = new_created = None
     if cfg.triangulate_points:
-        last_xy = get_row(kfs.kp_xy, last_slot)
-        fm = matcher(get_row(kfs.desc, last_slot), last_xy, get_row(kfs.kp_valid, last_slot),
-                     feat.desc, feat.xy, feat.valid)
-        un = unmatched_mask(fm, get_row(kfs.matches, last_slot) >= 0,
-                            get_row(kfs.matches, slot) >= 0)
-        uv1 = last_xy[fm.train_idx]
-        pose1 = se3.pose_matrix(get_row(kfs.rvec, last_slot), get_row(kfs.t, last_slot))
+        last_xy = row_of(kfs.kp_xy, last_slot, stacked)
+        fm = matcher(row_of(kfs.desc, last_slot, stacked), last_xy,
+                     row_of(kfs.kp_valid, last_slot, stacked), feat.desc, feat.xy, feat.valid)
+        un = unmatched_mask(fm, row_of(kfs.matches, last_slot, stacked) >= 0,
+                            row_of(kfs.matches, slot, stacked) >= 0)
+        uv1 = take(last_xy, fm.train_idx, stacked=stacked)
+        pose1 = se3.pose_matrix(row_of(kfs.rvec, last_slot, stacked),
+                                row_of(kfs.t, last_slot, stacked))
         tri = triangulate_points(cam, pose1, se3.pose_matrix(rvec, t), uv1, feat.xy, mask=un,
                                  max_reproj_px=cfg.triangulation_reproj_px)
-        colors = bilinear_sample(img, feat.xy)
+        colors = bilinear_sample(img, feat.xy, stacked=stacked)
         m, kfs, new_slots, new_created = create_points(
             m, tri.points, tri.valid, last_slot, slot, fm.train_idx,
-            torch.arange(K, device=dev), colors, kfs,
+            torch.arange(K, device=dev).expand(*lead, K), colors, kfs,
         )
 
-    P = m.valid.shape[0]
+    P = m.valid.shape[-1]
     if cfg.bundle_adjust:
-        W = cfg.local_ba_window
-        if W > 1 and cfg.window_ba_every > 1 and commit_no is None:
-            raise ValueError("window_ba_every > 1 needs the commit number (commit_no)")
-        window = W > 1 and (cfg.window_ba_every <= 1 or commit_no % cfg.window_ba_every == 0)
-        if window:
-            # The W newest keyframes free (two always stay frozen as gauge
-            # anchors), over the points they observe (window_ba).
-            newest_first = torch.argsort(
-                torch.where(kfs.valid, -kfs.frame_index,
-                            torch.full_like(kfs.frame_index, 1 << 30)), stable=True)
-            n_free = torch.clamp(torch.sum(kfs.valid) - 2, 1, W)
-            free_slots = torch.where(torch.arange(W, device=dev) < n_free, newest_first[:W],
-                                     torch.full_like(newest_first[:W], -1))
-            sel, sel_ok = m.ba_point_selection_mask(m.observed_by_any(free_slots) & m.valid,
-                                                    min(P, cfg.window_ba_budget))
-        else:
-            # Reference shape: only the new keyframe free, the points it
-            # sees free, compacted to <= Pc slots (kernel K4).
-            sel, sel_ok = m.ba_point_selection(
-                slot, min(P, cfg.ba_commit_budget or -(-K // 128) * 128))
-        obs_kf = m.obs_kf[sel]
-        obs_kp = m.obs_kp[sel]
-        prob = BAProblem(
-            cam_rvec=kfs.rvec,
-            cam_t=kfs.t,
-            points=m.pos[sel],
-            obs_cam=obs_kf,
-            obs_uv=kfs.kp_xy[obs_kf, obs_kp],
-            obs_valid=m.obs_valid[sel] & sel_ok[:, None],
-            cam_free=torch.arange(F, device=dev) == slot,
-            cam_in_problem=kfs.valid,
-            point_free=sel_ok,
-            point_in_problem=sel_ok,
-        )
-        if window:
-            res = window_ba(cam, prob, free_slots, max_iters=cfg.ba_iters,
-                            huber_delta=_huber(cfg, cam))
-        else:
-            res = structure_ba(cam, prob, slot, max_iters=cfg.ba_iters,
-                               huber_delta=_huber(cfg, cam))
-        pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points)
-        kfs = kfs._replace(rvec=res.cam_rvec, t=res.cam_t)
+        cam_rvec, cam_t, pos = _commit_ba(kfs, m, slot, K, cam=cam, cfg=cfg, commit_no=commit_no)
+        kfs = kfs._replace(rvec=cam_rvec, t=cam_t)
         m = m._replace(pos=pos)
-        rvec = get_row(res.cam_rvec, slot)
-        t = get_row(res.cam_t, slot)
+        rvec = row_of(cam_rvec, slot, stacked)
+        t = row_of(cam_t, slot, stacked)
 
     if cfg.cull_points:
         # Incremental-exact cull over the points whose error inputs changed
@@ -265,17 +334,25 @@ def _commit_keyframe(
         newest = torch.argsort(
             torch.where(kfs.valid, -kfs.frame_index, torch.full_like(kfs.frame_index, 1 << 30)),
             stable=True,
-        )[:max(cfg.local_ba_window, 1)]
+        )[..., :max(cfg.local_ba_window, 1)]
         cand = (evicted_obs | m.observed_by_any(newest)) & m.valid
         Cb = min(P, cfg.cull_budget)
         csel, csel_ok = m.ba_point_selection_mask(cand, Cb)
-        err_c, has_c = point_reprojection_errors_sel(cam, m, kfs, csel, csel_ok)
+        if stacked:
+            errs = [(*point_reprojection_errors_sel(cam, mi, ki, csel[i], csel_ok[i]),
+                     *point_reprojection_errors(cam, mi, ki))
+                    for i, (mi, ki) in enumerate(zip(_rows_of(m), _rows_of(kfs)))]
+            err_c, has_c, err_f, has_f = (torch.stack(z) for z in zip(*errs))
+        else:
+            err_c, has_c = point_reprojection_errors_sel(cam, m, kfs, csel, csel_ok)
         bad = csel_ok & has_c & (err_c > cfg.cull_reproj_px)
-        rm_compact = set_drop(torch.zeros((P,), dtype=torch.bool, device=dev),
-                              torch.where(bad, csel, torch.full_like(csel, P)), True)
-        err_f, has_f = point_reprojection_errors(cam, m, kfs)
+        rm_compact = set_drop(torch.zeros((*lead, P), dtype=torch.bool, device=dev),
+                              torch.where(bad, csel, torch.full_like(csel, P)), True,
+                              stacked=stacked)
+        if not stacked:
+            err_f, has_f = point_reprojection_errors(cam, m, kfs)
         rm_full = m.valid & has_f & (err_f > cfg.cull_reproj_px)
-        remove = torch.where(torch.sum(cand) <= Cb, rm_compact, rm_full)
+        remove = torch.where((torch.sum(cand, dim=-1) <= Cb)[..., None], rm_compact, rm_full)
         m, kfs = remove_points(m, kfs, remove)
 
     # Refresh the obs-descriptor cache rows whose observation table changed:
@@ -283,10 +360,11 @@ def _commit_keyframe(
     touched = torch.where(match_ok, matches, torch.full_like(matches, P))
     if new_slots is not None:
         touched = torch.cat([touched, torch.where(new_created, new_slots,
-                                                  torch.full_like(new_slots, P))])
+                                                  torch.full_like(new_slots, P))], dim=-1)
     safe = torch.clamp(touched, max=P - 1)
-    drows = kfs.desc[m.obs_kf[safe], m.obs_kp[safe]].to(torch.bfloat16)
-    obs_desc = set_drop(state.obs_desc, touched, drows)
+    drows = take(kfs.desc, take(m.obs_kf, safe, stacked=stacked),
+                 take(m.obs_kp, safe, stacked=stacked), stacked=stacked).to(torch.bfloat16)
+    obs_desc = set_drop(state.obs_desc, touched, drows, stacked=stacked)
 
     return state._replace(
         kfs=kfs,
@@ -301,6 +379,11 @@ def _commit_keyframe(
         arch_frame_index=arch_fi,
         arch_count=arch_count,
     )
+
+
+def _rows_of(tree) -> list:
+    """The rows of a stacked tree, as views."""
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(tree[0].shape[0])]
 
 
 def _essential_prediction(state: SlamState, feat: Features, generator, uniforms, *,
@@ -531,6 +614,15 @@ def _row_mask(S: int, rows: list, device) -> torch.Tensor:
     return mask
 
 
+def _row_index(rows: list, device) -> torch.Tensor:
+    """[len(rows)] int64 on the device holding `rows`, filled there (no host
+    copy)."""
+    idx = torch.empty((len(rows),), dtype=I64, device=device)
+    for j, i in enumerate(rows):
+        idx[j:j + 1].fill_(i)
+    return idx
+
+
 class _Motion(NamedTuple):
     """The leaves of a state that the essential prediction reads."""
 
@@ -622,14 +714,16 @@ def slam_step_multi(
     `last_inliers`, each row's
     state.last_inliers as host ints (the previous lockstep frame's read;
     when None, the step reads them, a second read). The [S] keyframe
-    decisions and inlier counts come back in the step's one host read;
-    then each active row that commits runs `_commit_keyframe` on its own
-    (K4 once a committing row), written back into the stacked state in
-    place (slam.state.set_state_row). The JAX package runs the commit for
-    every row under `select`; the results are the same, the commit work is
-    not. `commit_nos` are the rows' commit numbers (see _commit_keyframe).
-    Returns (states, MultiStepInfo); the input `states` is updated in place
-    where rows commit."""
+    decisions and inlier counts come back in the step's one host read,
+    which names the active rows that commit. Those rows, gathered into one
+    stacked sub-state, run one `_commit_keyframe` (kernel K4 once for all
+    of them, or window_ba a row at a time where the commit takes the
+    window; the frame match over their pairs, LightGlue's K6 once a site),
+    and are written back into the stacked state in place. The JAX package
+    runs the commit for every row under `select`; the results are the
+    same, the commit work is not. `commit_nos` are the rows' commit numbers
+    (see _commit_keyframe). Returns (states, MultiStepInfo); the input
+    `states` is updated in place where rows commit."""
     S = imgs.shape[0]
     dev = imgs.device
     if imgs.dtype == torch.uint8:
@@ -655,13 +749,23 @@ def slam_step_multi(
     is_kf_h, n_inl_h = torch.stack([tr.is_kf.to(I64), tracked.last_inliers]).tolist()
     states = tracked
     commits = [i for i in rows if is_kf_h[i]]
-    for i in commits:
-        row = state_row(states, i)
-        f = Features(*[x[i] for x in feat])
-        row = _commit_keyframe(row, imgs[i], f, row.last_rvec, row.last_t, tr.matches[i],
-                               cam=cam, cfg=cfg, matcher=frontend.matcher,
-                               commit_no=None if commit_nos is None else commit_nos[i])
-        set_state_row(states, i, row)
+    if commits:
+        # The committing rows as one stacked sub-state (all rows: the
+        # state itself), one commit over them, written back in place.
+        idx = None if len(commits) == S else _row_index(commits, dev)
+
+        def pick(x):
+            return x if idx is None else x.index_select(0, idx)
+
+        sub = tree_map(pick, states)
+        sub = _commit_keyframe(sub, pick(imgs), tree_map(pick, feat), sub.last_rvec, sub.last_t,
+                               pick(tr.matches), cam=cam, cfg=cfg, matcher=frontend.matcher,
+                               commit_no=None if commit_nos is None
+                               else [commit_nos[i] for i in commits])
+        if idx is None:
+            states = sub
+        else:
+            tree_map(lambda x, v: x.index_copy_(0, idx, v), states, sub)
     states = states._replace(
         frame_count=states.frame_count + (1 if act is None else act.to(I64)))
 

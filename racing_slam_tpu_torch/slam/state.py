@@ -9,6 +9,12 @@ JAX drops out-of-range scatter indices (`mode="drop"`); on CUDA an
 out-of-range index is a device-side assert. The scatters here therefore
 write through a sentinel row (`set_drop`): rejected entries target one
 extra row that is sliced off.
+
+The mutations also take C stacked states (a leading C on every leaf, as
+slam_step_multi's commit over the rows that commit on one lockstep frame
+passes them): each row is updated as it would be alone, by row-wise
+gathers and scatters (`take`, `set_drop(..., stacked=True)`), and an
+unstacked call runs exactly the operations it always has.
 """
 
 from __future__ import annotations
@@ -49,21 +55,53 @@ def set_row(x: torch.Tensor, i, v) -> torch.Tensor:
     return x.index_put((as_index(i, x.device),), v.unsqueeze(0))
 
 
-def set_drop(x: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+def _row_ids(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """[C, 1, ...] (ndim dims) row numbers of a stacked x [C, ...], to
+    broadcast against per-row index tensors [C, ...]."""
+    C = x.shape[0]
+    return torch.arange(C, device=x.device).reshape(C, *[1] * (ndim - 1))
+
+
+def take(x: torch.Tensor, *idx: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+    """x[idx] (advanced indexing of x's leading dims); with `stacked`, the
+    same within each row of a stacked x [C, ...] by [C, ...] indices."""
+    if not stacked:
+        return x[idx]
+    return x[(_row_ids(x, idx[0].dim()), *idx)]
+
+
+def row_of(x: torch.Tensor, i, stacked: bool = False) -> torch.Tensor:
+    """get_row(x, i); with `stacked`, row i[c] of each x[c] ([C] i)."""
+    if not stacked:
+        return get_row(x, i)
+    return x[torch.arange(x.shape[0], device=x.device), i]
+
+
+def set_drop(x: torch.Tensor, idx: torch.Tensor, vals, stacked: bool = False) -> torch.Tensor:
     """x.at[idx].set(vals, mode="drop"): rows with idx outside [0, N) are
-    dropped, by writing them to a sentinel row N that is sliced off."""
+    dropped, by writing them to a sentinel row N that is sliced off. With
+    `stacked`, the same within each row of x [C, N, ...] by idx [C, ...]."""
+    if stacked:  # the rows end to end: row c's entry i is entry c * N + i
+        C, N = x.shape[:2]
+        ok = (idx >= 0) & (idx < N)
+        at = torch.where(ok, idx + _row_ids(x, idx.dim()) * N, torch.full_like(idx, C * N))
+        return set_drop(x.reshape(C * N, *x.shape[2:]), at, vals).reshape(x.shape)
     N = x.shape[0]
     tgt = torch.where((idx >= 0) & (idx < N), idx, torch.full_like(idx, N)).to(I64)
     ext = torch.cat([x, x[:1]], dim=0)
     return ext.index_put((tgt,), as_tensor(vals, x.dtype, x.device))[:N]
 
 
-def set_drop2(x: torch.Tensor, i: torch.Tensor, j: torch.Tensor, vals) -> torch.Tensor:
-    """x.at[i, j].set(vals, mode="drop") on the first two dims of x."""
-    N, M = x.shape[:2]
+def set_drop2(x: torch.Tensor, i: torch.Tensor, j: torch.Tensor, vals,
+              stacked: bool = False) -> torch.Tensor:
+    """x.at[i, j].set(vals, mode="drop") on the first two dims of x (the
+    two after the stacked one with `stacked`)."""
+    lead = x.shape[:int(stacked)]
+    N, M = x.shape[len(lead):len(lead) + 2]
     ok = (i >= 0) & (i < N) & (j >= 0) & (j < M)
     flat = torch.where(ok, i * M + j, torch.full_like(i, N * M)).to(I64)
-    return set_drop(x.reshape(N * M, *x.shape[2:]), flat, vals).reshape(x.shape)
+    return set_drop(x.reshape(*lead, N * M, *x.shape[len(lead) + 2:]), flat, vals,
+                    stacked=stacked).reshape(x.shape)
 
 
 class Features(NamedTuple):
@@ -130,7 +168,8 @@ class MapState(NamedTuple):
         return torch.sum(self.valid)
 
     def observed_by(self, kf_slot) -> torch.Tensor:
-        """[P] bool: point has an observation in keyframe `kf_slot`."""
+        """[P] bool: point has an observation in keyframe `kf_slot` (of a
+        stacked map [C, P]: `kf_slot` [C, 1, 1])."""
         return torch.any((self.obs_kf == kf_slot) & self.obs_valid, dim=-1)
 
     def observation_descriptors(self, kfs: KeyframeStore) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,15 +184,19 @@ class MapState(NamedTuple):
         self, point_in: torch.Tensor, budget: int
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """[budget] slots of the in-problem points, most observed first
-        (stable order); returns (sel, sel_ok)."""
-        O = self.obs_valid.shape[1]
+        (stable order); returns (sel, sel_ok), [C, budget] each for a
+        stacked map."""
+        O = self.obs_valid.shape[-1]
         n_obs = torch.sum(self.obs_valid, dim=-1)
         rank = torch.where(point_in, O - n_obs, torch.full_like(n_obs, 2 * O))
-        sel = torch.argsort(rank, stable=True)[:budget]
-        return sel, point_in[sel]
+        sel = torch.argsort(rank, stable=True)[..., :budget]
+        return sel, take(point_in, sel, stacked=point_in.dim() == 2)
 
     def observed_by_any(self, kf_slots: torch.Tensor) -> torch.Tensor:
-        """[P] bool: observed in ANY of `kf_slots` [W] (entries < 0 ignored)."""
+        """[P] bool: observed in ANY of `kf_slots` [W] (entries < 0 ignored);
+        [C, P] for a stacked map and [C, W] slots."""
+        if kf_slots.dim() == 2:
+            kf_slots = kf_slots[:, None, None, :]
         slots = torch.where(kf_slots >= 0, kf_slots, torch.full_like(kf_slots, -2))
         eq = self.obs_kf[..., None] == slots
         return torch.any(eq & self.obs_valid[..., None], dim=-1).any(dim=-1)
@@ -221,22 +264,31 @@ class SlamState(NamedTuple):
 
 def write_keyframe(kfs: KeyframeStore, slot, rvec, t, feat: Features, matches,
                    frame_index) -> KeyframeStore:
-    """Write a frame into keyframe slot `slot` (int or 0-d tensor)."""
+    """Write a frame into keyframe slot `slot` (int or 0-d tensor); into
+    slot[c] of each row of a stacked store, the operands with a leading C."""
+    put = set_row
+    if kfs.valid.dim() == 2:
+        rows = torch.arange(kfs.valid.shape[0], device=kfs.valid.device)
+
+        def put(x, i, v):
+            return x.index_put((rows, i), as_tensor(v, x.dtype, x.device))
+
     return kfs._replace(
-        rvec=set_row(kfs.rvec, slot, rvec),
-        t=set_row(kfs.t, slot, t),
-        kp_xy=set_row(kfs.kp_xy, slot, feat.xy),
-        desc=set_row(kfs.desc, slot, feat.desc),
-        kp_valid=set_row(kfs.kp_valid, slot, feat.valid),
-        matches=set_row(kfs.matches, slot, matches),
-        valid=set_row(kfs.valid, slot, True),
-        frame_index=set_row(kfs.frame_index, slot, frame_index),
+        rvec=put(kfs.rvec, slot, rvec),
+        t=put(kfs.t, slot, t),
+        kp_xy=put(kfs.kp_xy, slot, feat.xy),
+        desc=put(kfs.desc, slot, feat.desc),
+        kp_valid=put(kfs.kp_valid, slot, feat.valid),
+        matches=put(kfs.matches, slot, matches),
+        valid=put(kfs.valid, slot, True),
+        frame_index=put(kfs.frame_index, slot, frame_index),
     )
 
 
 def allocate_point_slots(map_valid: torch.Tensor, n_cand: int) -> torch.Tensor:
-    """[n_cand] slot ids, free slots first (callers AND with slot-is-free)."""
-    return torch.argsort(map_valid.to(torch.int32), stable=True)[:n_cand]
+    """[n_cand] slot ids, free slots first (callers AND with slot-is-free);
+    [C, n_cand] for stacked maps."""
+    return torch.argsort(map_valid.to(torch.int32), stable=True)[..., :n_cand]
 
 
 def create_points(
@@ -252,42 +304,49 @@ def create_points(
 ) -> tuple[MapState, KeyframeStore, torch.Tensor, torch.Tensor]:
     """Allocate a slot per valid candidate, write it, register its two
     observations and wire both frames' match slots. Returns
-    (map, kfs, slots[C], created[C])."""
-    C = positions.shape[0]
-    P = m.valid.shape[0]
-    O = m.obs_kf.shape[1]
+    (map, kfs, slots[C], created[C]). Stacked states take a leading S on
+    every operand (kf_a, kf_b [S])."""
+    stacked = m.valid.dim() == 2
+    lead = m.valid.shape[:-1]
+    C = positions.shape[-2]
+    P = m.valid.shape[-1]
+    O = m.obs_kf.shape[-1]
     dev = positions.device
     order = torch.argsort((~cand_valid).to(torch.int32), stable=True)
     inv_order = torch.argsort(order)
     # With more candidates than slots (C > P) the ranks past P take the last
     # slot, as JAX's clamping gather does; that slot is free only when every
     # slot is, and then those candidates are not valid (they sort last).
-    slots = allocate_point_slots(m.valid, C)[torch.clamp(inv_order, max=P - 1)]
-    created = cand_valid & ~m.valid[slots]
+    slots = take(allocate_point_slots(m.valid, C), torch.clamp(inv_order, max=P - 1),
+                 stacked=stacked)
+    created = cand_valid & ~take(m.valid, slots, stacked=stacked)
     target = torch.where(created, slots, torch.full_like(slots, P))
 
     kf_a = as_tensor(kf_a, I64, dev)
     kf_b = as_tensor(kf_b, I64, dev)
-    zeros_i = torch.zeros((C, O - 2), dtype=I64, device=dev)
-    obs_kf_new = torch.cat([kf_a.expand(C, 1), kf_b.expand(C, 1), zeros_i], dim=-1)
-    obs_kp_new = torch.cat([kp_a[:, None].to(I64), kp_b[:, None].to(I64), zeros_i], dim=-1)
+    zeros_i = torch.zeros((*lead, C, O - 2), dtype=I64, device=dev)
+    obs_kf_new = torch.cat([kf_a[..., None, None].expand(*lead, C, 1),
+                            kf_b[..., None, None].expand(*lead, C, 1), zeros_i], dim=-1)
+    obs_kp_new = torch.cat([kp_a[..., None].to(I64), kp_b[..., None].to(I64), zeros_i], dim=-1)
     obs_valid_new = torch.cat(
-        [torch.ones((C, 2), dtype=torch.bool, device=dev),
-         torch.zeros((C, O - 2), dtype=torch.bool, device=dev)], dim=-1
+        [torch.ones((*lead, C, 2), dtype=torch.bool, device=dev),
+         torch.zeros((*lead, C, O - 2), dtype=torch.bool, device=dev)], dim=-1
     )
     m = m._replace(
-        pos=set_drop(m.pos, target, positions),
-        color=set_drop(m.color, target, colors),
-        valid=set_drop(m.valid, target, True),
-        obs_kf=set_drop(m.obs_kf, target, obs_kf_new),
-        obs_kp=set_drop(m.obs_kp, target, obs_kp_new),
-        obs_valid=set_drop(m.obs_valid, target, obs_valid_new),
+        pos=set_drop(m.pos, target, positions, stacked=stacked),
+        color=set_drop(m.color, target, colors, stacked=stacked),
+        valid=set_drop(m.valid, target, True, stacked=stacked),
+        obs_kf=set_drop(m.obs_kf, target, obs_kf_new, stacked=stacked),
+        obs_kp=set_drop(m.obs_kp, target, obs_kp_new, stacked=stacked),
+        obs_valid=set_drop(m.obs_valid, target, obs_valid_new, stacked=stacked),
     )
-    K = kfs.matches.shape[1]
+    K = kfs.matches.shape[-1]
     kp_a_t = torch.where(created, kp_a.to(I64), torch.full_like(slots, K))
     kp_b_t = torch.where(created, kp_b.to(I64), torch.full_like(slots, K))
-    matches = set_drop2(kfs.matches, kf_a.expand(C), kp_a_t, slots)
-    matches = set_drop2(matches, kf_b.expand(C), kp_b_t, slots)
+    matches = set_drop2(kfs.matches, kf_a[..., None].expand(*lead, C), kp_a_t, slots,
+                        stacked=stacked)
+    matches = set_drop2(matches, kf_b[..., None].expand(*lead, C), kp_b_t, slots,
+                        stacked=stacked)
     return m, kfs._replace(matches=matches), slots, created
 
 
@@ -301,36 +360,43 @@ def add_associations(
 ) -> MapState:
     """Register observation (kf_slot, k) on each matched point; a full table
     replaces its oldest observation ("replace_oldest") or drops the new one
-    ("drop_newest"). The first invalid slot is always taken first."""
-    K = point_idx.shape[0]
-    P, O = m.obs_valid.shape
+    ("drop_newest"). The first invalid slot is always taken first. Stacked
+    maps take a leading S on every operand (kf_slot [S])."""
+    stacked = m.valid.dim() == 2
+    lead = m.valid.shape[:-1]
+    K = point_idx.shape[-1]
+    P, O = m.obs_valid.shape[-2:]
     dev = point_idx.device
     pid = torch.clamp(point_idx, 0, P - 1).to(I64)
     minus1 = torch.full_like(m.obs_kf, -1)
     if kf_frame_index is None:
-        age = torch.where(m.obs_valid, torch.arange(O, device=dev)[None, :].expand(P, O), minus1)
+        age = torch.where(m.obs_valid,
+                          torch.arange(O, device=dev)[None, :].expand(*lead, P, O), minus1)
     else:
-        age = torch.where(m.obs_valid, kf_frame_index[torch.clamp(m.obs_kf, min=0)], minus1)
-    cursor = torch.argmin(age, dim=-1)[pid]
+        age = torch.where(m.obs_valid, take(kf_frame_index, torch.clamp(m.obs_kf, min=0),
+                                            stacked=stacked), minus1)
+    cursor = take(torch.argmin(age, dim=-1), pid, stacked=stacked)
     ok = assoc_valid & (point_idx >= 0)
     if policy == "drop_newest":
-        ok = ok & torch.any(~m.obs_valid, dim=-1)[pid]
+        ok = ok & take(torch.any(~m.obs_valid, dim=-1), pid, stacked=stacked)
     pid_t = torch.where(ok, pid, torch.full_like(pid, P))
     cur_t = torch.where(ok, cursor, torch.full_like(cursor, O))
-    kf = as_tensor(kf_slot, I64, dev).expand(K)
+    kf = as_tensor(kf_slot, I64, dev)[..., None].expand(*lead, K)
     return m._replace(
-        obs_kf=set_drop2(m.obs_kf, pid_t, cur_t, kf),
-        obs_kp=set_drop2(m.obs_kp, pid_t, cur_t, torch.arange(K, device=dev)),
-        obs_valid=set_drop2(m.obs_valid, pid_t, cur_t, True),
+        obs_kf=set_drop2(m.obs_kf, pid_t, cur_t, kf, stacked=stacked),
+        obs_kp=set_drop2(m.obs_kp, pid_t, cur_t,
+                         torch.arange(K, device=dev).expand(*lead, K), stacked=stacked),
+        obs_valid=set_drop2(m.obs_valid, pid_t, cur_t, True, stacked=stacked),
     )
 
 
 def remove_points(m: MapState, kfs: KeyframeStore, remove: torch.Tensor
                   ) -> tuple[MapState, KeyframeStore]:
-    """Invalidate points and scrub every keyframe match slot naming them."""
-    m = m._replace(valid=m.valid & ~remove, obs_valid=m.obs_valid & ~remove[:, None])
+    """Invalidate points and scrub every keyframe match slot naming them
+    (stacked states: `remove` [S, P])."""
+    m = m._replace(valid=m.valid & ~remove, obs_valid=m.obs_valid & ~remove[..., None])
     ref = kfs.matches
-    stale = (ref >= 0) & remove[torch.clamp(ref, min=0)]
+    stale = (ref >= 0) & take(remove, torch.clamp(ref, min=0), stacked=remove.dim() == 2)
     return m, kfs._replace(matches=torch.where(stale, torch.full_like(ref, NO_MATCH), ref))
 
 

@@ -10,7 +10,9 @@ headers they include; each tree's two sources are built by their own nvcc
 processes (all started together, the flags of ``ops/kernels/_build.py``)
 and linked into ``build/kernel_ab/NAME.so``. A tree's C interface is told
 apart by its symbols: the one-block K4 and single-launch K6 of the first
-port take no cluster size and no workspace. Variants: K4 at each
+port take no cluster size and no workspace, and a K4 that solves S
+problems a launch (it exports `slam_structure_ba_max_clusters`) is called
+with S = 1. Variants: K4 at each
 ``--k4-cluster`` size (cluster trees), K6 at each ``--k6-chunks`` split
 (0 = the wrapper's default; split trees), and torch's scaled_dot_product_attention in bf16 on the same
 inputs as the yardstick. Inputs: K4 at the commit shape
@@ -80,10 +82,11 @@ def k4_caller(lib, cluster: int | None):
     P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.slam_structure_ba
     fn.restype = ctypes.c_int
+    lead = [1] if hasattr(lib, "slam_structure_ba_max_clusters") else []  # S problems a launch
     if cluster is None:
         fn.argtypes = [P_] * 11 + [I_, I_, I_, F_, F_, F_, F_, F_, F_, I_, P_]
     else:
-        fn.argtypes = [P_] * 11 + [I_, I_, I_, F_, F_, F_, F_, F_, F_, I_, I_, P_]
+        fn.argtypes = [P_] * 11 + [I_] * (3 + len(lead)) + [F_] * 6 + [I_, I_, P_]
         lib.slam_structure_ba_scratch_bytes.argtypes = [I_, I_, I_]
         lib.slam_structure_ba_scratch_bytes.restype = ctypes.c_size_t
 
@@ -102,7 +105,7 @@ def k4_caller(lib, cluster: int | None):
             tail = [cluster]
         err = fn(*[t.data_ptr() if t is not None else None for t in (
             cam_rvec, cam_t, free_slot, points, obs_cam, obs_uv, include, point_free, out, pts,
-            scratch)], F, P, O, kw["fx"], kw["cx"], kw["cy"], 1e-4, kw["huber_delta"],
+            scratch)], *lead, F, P, O, kw["fx"], kw["cx"], kw["cy"], 1e-4, kw["huber_delta"],
             FUNCTION_TOLERANCE, kw["max_iters"], *tail, torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"K4 launch failed: CUDA error {err}")

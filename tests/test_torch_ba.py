@@ -162,6 +162,42 @@ def test_k4_twin_matches_xla_and_pallas(rng, frozen):
     np.testing.assert_allclose(float(cost), float(res.cost), rtol=1e-5)
 
 
+def test_structure_ba_stacked_matches_jax_vmap(rng):
+    """The port's ops.ba.structure_ba over C = 3 stacked problems (one K4
+    twin call; the rows that commit on one lockstep frame) against jax.vmap
+    of the JAX package's structure_ba(..., backend="xla") over the same
+    stack, as its vmapped commit runs it: three perturbed rigs, free slots
+    2, 1 and 2, the third with 20 frozen points; this file's tolerances per
+    problem. Each problem's result equals its unstacked call to the bit."""
+    import jax
+
+    probs = [_perturbed_rig(rng)[3] for _ in range(3)]
+    cam = _perturbed_rig(rng)[0]
+    pf = np.ones(probs[2].points.shape[0], bool)
+    pf[:20] = False
+    probs[2] = probs[2]._replace(point_free=jnp.asarray(pf))
+    stacked = jax.tree.map(lambda *x: jnp.stack(x), *probs)
+    free = np.array([2, 1, 2])
+    ref = jax.vmap(lambda p, f: jba.structure_ba(cam, p, f, backend="xla"))(
+        stacked, jnp.asarray(free, jnp.int32))
+    tprob = _tprob(stacked)
+    res = tba.structure_ba(Camera(*cam), tprob, torch.from_numpy(free))
+    assert res.points.shape == tprob.points.shape and res.cost.shape == (3,)
+    for c, f in enumerate(free):
+        np.testing.assert_allclose(res.cam_rvec[c, f].numpy(), np.asarray(ref.cam_rvec)[c, f],
+                                   atol=1e-5)
+        np.testing.assert_allclose(res.cam_t[c, f].numpy(), np.asarray(ref.cam_t)[c, f],
+                                   atol=1e-4)
+        r_cost = float(ref.cost[c])
+        assert abs(float(res.cost[c]) - r_cost) <= 0.01 * r_cost + 1e-10, (c, res.cost[c], r_cost)
+        err = np.linalg.norm(res.points[c].numpy() - np.asarray(ref.points)[c], axis=-1)
+        assert np.median(err) < 1e-4, (c, np.median(err))
+        one = tba.structure_ba(Camera(*cam), tba.BAProblem(*[x[c] for x in tprob]),
+                               torch.tensor(f))
+        assert all(torch.equal(a, b[c]) for a, b in zip(one, res)), c
+    np.testing.assert_array_equal(res.points[2, :20].numpy(), np.asarray(probs[2].points)[:20])
+
+
 # ---------------------------------------------------------------------------
 # Schur building blocks, window_ba and full_ba (plain PyTorch on both sides
 # of the card; the JAX package has no Pallas kernel here)

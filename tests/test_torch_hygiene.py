@@ -94,6 +94,12 @@ CASES = {
                     _meta((128, 8, 2)), _meta((128, 8), torch.bool), _meta((128,), torch.bool),
                     _meta((), torch.int64)),
            dict(fx=480.0, cx=320.0, cy=240.0, max_iters=10, huber_delta=0.005)),
+    "K4[C]": (k4, "structure_ba_lm", "structure_ba_lm_reference", "slam_structure_ba",
+              lambda: (_meta((3, 32, 3)), _meta((3, 32, 3)), _meta((3, 128, 3)),
+                       _meta((3, 128, 8), torch.int64), _meta((3, 128, 8, 2)),
+                       _meta((3, 128, 8), torch.bool), _meta((3, 128), torch.bool),
+                       _meta((3,), torch.int64)),
+              dict(fx=480.0, cx=320.0, cy=240.0, max_iters=10, huber_delta=0.005)),
     "K5": (k5, "guided_match_stage1_banded", "guided_match_stage1_banded_reference",
            "slam_guided_match_banded",
            lambda: (_meta((512, 2)), _meta((512,), torch.bool),

@@ -438,6 +438,43 @@ def test_k4_cluster_matches_twin_and_repeats_bit_for_bit(cuda, P, frozen, free_s
     np.testing.assert_array_equal(pts[:frozen], args[2].cpu().numpy()[:frozen])
 
 
+@pytest.mark.parametrize("C,P", [(1, 2432), (3, 2432), (8, 2432), (3, 17000)],
+                         ids=["C1", "C3", "C8", "C3_scratch"])
+def test_k4_batched_equals_single_launches(cuda, C, P):
+    """K4 over C problems in one launch of C clusters (the commits of the
+    rows that commit on one lockstep frame), each with its own data, free
+    slot and frozen share; at P = 17000 every problem's points overflow
+    shared memory into its own slice of the scratch. Each problem's pose,
+    cost, iterations and points bit-equal to a launch of that problem
+    alone, one count in `launches` and `batched_launches` for the batched
+    call and none of the latter for the single ones, and each problem
+    within test_k4_cluster_matches_twin_and_repeats_bit_for_bit's rules
+    against the twin (the exit off)."""
+    probs = [_k4_problem(np.random.default_rng(300 + c), P, frozen=(0, 100, 600)[c % 3],
+                         free_slot=(None, 61, 40)[c % 3]) for c in range(C)]
+    kw = dict(probs[0][1], ftol=0.0)
+    args = [torch.stack([p[0][i] for p in probs]).to(cuda) for i in range(8)]
+    before = (k4.launches, k4.batched_launches)
+    out, pts = k4.structure_ba_lm(*args, **kw)
+    assert (k4.launches, k4.batched_launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (C, 8) and pts.shape == (C, P, 3)
+    for c in range(C):
+        one, one_pts = k4.structure_ba_lm(*[a[c] for a in args], **kw)
+        assert torch.equal(out[c], one) and torch.equal(pts[c], one_pts), f"problem {c}"
+    assert k4.batched_launches == before[1] + 1  # the single launches counted apart
+    ref, rpts = k4.structure_ba_lm_reference(*args, **kw)
+    out, pts, ref, rpts = [t.cpu().numpy() for t in (out, pts, ref, rpts)]
+    for c in range(C):
+        np.testing.assert_allclose(out[c, :3], ref[c, :3], atol=1e-5)
+        np.testing.assert_allclose(out[c, 3:6], ref[c, 3:6], atol=1e-4)
+        assert abs(out[c, 6] - ref[c, 6]) <= 0.01 * ref[c, 6] + 1e-10, (c, out[c, 6], ref[c, 6])
+        assert out[c, 7] == ref[c, 7], (c, out[c, 7], ref[c, 7])
+        perr = np.linalg.norm(pts[c] - rpts[c], axis=-1)
+        assert np.median(perr) < 1e-4 and perr.max() < 5e-2, (c, np.median(perr), perr.max())
+        frozen = (0, 100, 600)[c % 3]
+        np.testing.assert_array_equal(pts[c, :frozen], args[2][c, :frozen].cpu().numpy())
+
+
 @pytest.mark.parametrize("Kq,Kk,dh,valid,chunks", [
     (2400, 130, 32, 0.8, None),  # fewer keys than one chunk of the default split
     (2400, 130, 32, 0.8, 4),  # 3 key tiles in 4 chunks: the last all padding

@@ -8,9 +8,12 @@ on the tiny world of tests/torch_multi_world.py (2 sequences, 10 frames,
     the descriptor dimension) against each sequence's own Slam run
     (seed=i): every leaf of the state equal to the bit and the rows'
     essential predictions equal, under constant velocity (LightGlue at the
-    commits, row by row) and under essential_matrix_estimation (LightGlue
-    over both rows every lockstep frame). The fleet's Slams share one
-    frontend and load the LightGlue weights once.
+    commits, over the rows that commit on a lockstep frame), with every
+    row committing on every frame (min_commit_inliers above any inlier
+    count: LightGlue and K4 over both rows at each commit), and under
+    essential_matrix_estimation (LightGlue over both rows every lockstep
+    frame). The fleet's Slams share one frontend and load the LightGlue
+    weights once.
 (b) slam_step_multi against the JAX package's multi_sequence_step with its
     SuperPointFrontend and LightGlueMatcher, from JAX's
     MultiSlam.initialize() states, under essential_matrix_estimation
@@ -94,11 +97,15 @@ def _frontend(sp_params):
     return superpoint.SuperPointFrontend(sp_params, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["constant_velocity", "essential"])
+CASES = {"constant_velocity": {}, "forced_commits": dict(min_commit_inliers=1 << 30),
+         "essential": dict(essential_matrix_estimation=True)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
 def test_multi_slam_learned_matches_per_sequence_slam(world, sp_params, monkeypatch, case):
     """(a): every leaf to the bit after 6 lockstep frames (batches of 3)."""
     cam, seqs = world
-    extra = dict(essential_matrix_estimation=True) if case == "essential" else {}
+    extra = CASES[case]
     cfg = tiny_cfg(pose_prediction="constant_velocity", **LEARNED, **extra)
     single, slams = [], []
     for i, s in enumerate(seqs):
@@ -125,9 +132,11 @@ def test_multi_slam_learned_matches_per_sequence_slam(world, sp_params, monkeypa
     for got, want in zip(ms.states_per_sequence(), single):
         assert got.obs_desc.shape[-1] == 256
         assert int(got.num_kf) == int(want.num_kf)
-        commits += int(got.num_kf) - 2
+        commits += int(got.num_kf) + int(got.arch_count) - 2
         assert _equal_states(got, want)  # every leaf, to the bit
     assert commits > 0  # LightGlue ran at a commit on some row
+    if case == "forced_commits":
+        assert commits == 2 * 6  # both rows on every lockstep frame
 
 
 def test_step_matches_jax_multi_sequence_step_learned(world):

@@ -17,10 +17,18 @@ slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
     sequence is archived and re-bootstrapped; a cut too close to the end of
     its stream marks the sequence finished and leaves its row blank.
 (d) refine_map: each row equals full_ba + apply_refinement on that row.
-(e) The batched K2 and K3 twins at S=3 equal three single calls (atol 0),
-    and the batched frontend equals per-frame extraction.
+(e) The batched K2, K3 and K4 twins at S=3 equal three single calls
+    (atol 0), and the batched frontend equals per-frame extraction.
 (f) A lockstep frame makes one host read and one K1, two K2 and two K3
-    calls, whatever S; inactive rows are left as they were.
+    calls, whatever S; inactive rows are left as they were; the rows that
+    commit on it make one batched K4 call and no single one.
+(g) The keyframe commit over the rows that commit on one lockstep frame:
+    with every row committing on every frame (min_commit_inliers above any
+    inlier count), (a) every leaf to the bit with one batched K4 twin
+    call a lockstep frame, and (b) against JAX's step; on the hybrid
+    cadence (local_ba_window=4, window_ba_every=2), rows on different
+    commit numbers split between K4 and window_ba on one lockstep frame,
+    each row bit-equal to its own slam_step.
 (h) The pose predictions and the banded matcher in the lockstep step:
     (a) under essential_matrix_estimation, adaptive (as it comes, where
     one row takes the essential prediction on a frame and the other does
@@ -59,6 +67,7 @@ from racing_slam_tpu_torch.ops.ba import full_ba
 from racing_slam_tpu_torch.ops.kernels import frontend as k1
 from racing_slam_tpu_torch.ops.kernels import match as k2
 from racing_slam_tpu_torch.ops.kernels import motion_ba as k3
+from racing_slam_tpu_torch.ops.kernels import structure_ba as k4
 from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam, batched_state
 from racing_slam_tpu_torch.parallel.refine import apply_refinement, build_global_problem
 from racing_slam_tpu_torch.slam import pipeline as tp
@@ -116,8 +125,88 @@ def _multi_against_per_sequence_slam(world, cfg, frames: int, batch: int):
     return ms
 
 
+def _count_k4(monkeypatch) -> dict:
+    """Counts K4's twin calls: `batched`, the C of each call with a leading
+    C (a lockstep frame's commit), and `single`, the calls of one problem
+    (not those the batched twin makes for its rows)."""
+    calls = {"batched": [], "single": 0}
+    orig = k4.structure_ba_lm_reference
+    inside = []
+
+    def counted(*a, **kw):
+        if a[2].dim() == 3:
+            calls["batched"].append(a[2].shape[0])
+            inside.append(True)
+            try:
+                return orig(*a, **kw)
+            finally:
+                inside.pop()
+        calls["single"] += not inside
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(k4, "structure_ba_lm_reference", counted)
+    return calls
+
+
 def test_multi_slam_matches_per_sequence_slam(world):
     _multi_against_per_sequence_slam(world, tiny_cfg(), frames=6, batch=3)
+
+
+# The absolute commit floor above any inlier count: every row commits on
+# every frame (slam/config.py min_commit_inliers, pipeline.py _track).
+FORCED = dict(min_commit_inliers=1 << 30)
+
+
+def test_multi_slam_matches_per_sequence_slam_forced_commits(world, monkeypatch):
+    """(g) (a): every leaf to the bit after 8 lockstep frames (batches of
+    4), both rows committing on each, with one batched K4 twin call of the
+    two rows a lockstep frame; single calls only at the bootstraps (the
+    Slams' two, their 16 commits, and MultiSlam's two)."""
+    calls = _count_k4(monkeypatch)
+    cfg = tiny_cfg(pose_prediction="constant_velocity", **FORCED)
+    ms = _multi_against_per_sequence_slam(world, cfg, frames=8, batch=4)
+    assert calls["batched"] == [2] * 8, calls
+    assert calls["single"] == 2 * (1 + 8) + 2, calls
+    for st in ms.states_per_sequence():  # every frame committed, the oldest evicted
+        assert int(st.arch_count) + int(st.num_kf) == 2 + 8
+    # A commit of every row writes the stacked state whole: the kernels
+    # take its leaves as they are and need them contiguous.
+    assert all(x.is_contiguous() for x in _named_leaves(ms.states).values())
+
+
+def test_hybrid_cadence_rows_split_between_k4_and_window_ba(world, monkeypatch):
+    """(g): local_ba_window=4 with window_ba_every=2 and forced commits,
+    the rows on commit numbers of different parity, so that on each
+    lockstep frame one row's commit takes the window (window_ba, alone)
+    and the other's the reference shape (K4, a batched call of one
+    problem), the two swapping from frame to frame; each row bit-equal to
+    slam_step on that row with its commit number, over 4 frames."""
+    cam, seqs = world
+    cfg = tiny_cfg(pose_prediction="constant_velocity", local_ba_window=4, window_ba_every=2,
+                   **FORCED)
+    ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
+    assert ms.initialize()
+    calls = _count_k4(monkeypatch)
+    windows = []
+    monkeypatch.setattr(tp, "window_ba", lambda *a, _w=tp.window_ba, **kw: windows.append(
+        a[1].points.shape) or _w(*a, **kw))
+    states, nos = ms.states, [2, 3]
+    rows = [tree_map(torch.clone, state_row(states, i)) for i in range(2)]
+    start = states.frame_count.tolist()
+    for j in range(4):
+        imgs = np.stack([_u8(seqs[i].frames[start[i] + j]) for i in range(2)])
+        n_single, n_windows = calls["single"], len(windows)
+        states, info = tp.slam_step_multi(states, torch.from_numpy(imgs), [True, True], None,
+                                          cam=cam, cfg=cfg, frontend=ms.frontend, commit_nos=nos)
+        assert info.is_keyframe == [True, True]
+        assert calls["batched"] == [1] * (j + 1) and calls["single"] == n_single, calls
+        assert len(windows) == n_windows + 1
+        for i in range(2):
+            rows[i], _ = tp.slam_step(rows[i], torch.from_numpy(imgs[i]), None, cam=cam, cfg=cfg,
+                                      frontend=ms.frontend, commit_no=nos[i])
+            assert _equal_states(state_row(states, i), rows[i]), (j, i)
+        nos = [n + 1 for n in nos]
+    assert calls["single"] == 4  # the rows' own slam_step commits
 
 
 def test_multi_slam_matches_per_sequence_slam_constant_velocity(world):
@@ -206,7 +295,7 @@ def test_step_matches_jax_multi_sequence_step_predictions(world, jax_boot, case)
 
     These steps predict and track and do not commit (keyframe_match_ratio
     0), with SlamConfig's 10 motion-BA iterations. The commit is the
-    classical path's, per row, and the tests above hold it; on this world
+    classical path's, and the tests above and below hold it; on this world
     of ~100 map points a commit from equal states can triangulate or cull
     one weak-depth point differently in the two packages (or in one
     package under another CPU thread count), which moves the committed
@@ -259,16 +348,17 @@ def test_step_matches_jax_multi_sequence_step_predictions(world, jax_boot, case)
     assert (info.band_fallbacks is not None) == (case == "banded")
 
 
-def test_step_matches_jax_multi_sequence_step(world):
+def _against_jax_lockstep(world, mesh, jfrontend, jstates, cfg, frames: int = 6,
+                          one_step: bool = False) -> int:
+    """slam_step_multi from JAX's bootstrapped states against JAX's
+    multi_sequence_step over `frames` lockstep frames, each side carrying
+    its own states (with `one_step`, the port's from JAX's states of the
+    frame before: the one-step rule), rvec 1e-4, t 1e-3 per row, equal
+    num_kf and frame_count; returns the row commits."""
     cam, seqs = world
-    cfg = tiny_cfg(pose_prediction="constant_velocity")
-    jcfg = JaxSlamConfig(**dataclasses.asdict(cfg))
-    jcam = JaxCamera(*cam)
-    mesh = jax_make_mesh({"seq": 2, "lm": 4})
-    jms = JaxMultiSlam(jcam, [JaxArraySource(s.frames) for s in seqs], mesh, jcfg)
-    assert jms.initialize()
-    jstep = jax_multi_sequence_step(mesh, cam=jcam, cfg=jcfg, frontend=jms.frontend)
-    jstates = jms.states
+    jstep = jax_multi_sequence_step(mesh, cam=JaxCamera(*cam),
+                                    cfg=JaxSlamConfig(**dataclasses.asdict(cfg)),
+                                    frontend=jfrontend)
     rows = [jax.tree.map(lambda x, i=i: np.asarray(x)[i], jstates) for i in range(2)]
     states = stack_states([state_from_numpy(r, device="cpu") for r in rows], device="cpu")
     frontend = ClassicalFrontend(cell=cfg.cell, n_per_cell=cfg.n_per_cell,
@@ -276,9 +366,13 @@ def test_step_matches_jax_multi_sequence_step(world):
     start = [int(r.frame_count) for r in rows]
     key = jax.random.PRNGKey(0)
     commits = 0
-    for j in range(6):
+    for j in range(frames):
         imgs = np.stack([_u8(seqs[i].frames[start[i] + j]) for i in range(2)])
         keys = np.asarray(jax.random.split(key, 2)).reshape(2, 1, -1)
+        if one_step:
+            states = stack_states([state_from_numpy(jax.tree.map(
+                lambda x, i=i: np.asarray(x)[i], jstates), device="cpu") for i in range(2)],
+                device="cpu")
         jstates, jinfo = jstep(jstates, imgs[:, None], keys, np.ones((2, 1), bool), None)
         states, info = tp.slam_step_multi(states, torch.from_numpy(imgs), [True, True], None,
                                           cam=cam, cfg=cfg, frontend=frontend)
@@ -288,7 +382,30 @@ def test_step_matches_jax_multi_sequence_step(world):
         np.testing.assert_allclose(states.last_t.numpy(), np.asarray(jstates.last_t), atol=1e-3)
         np.testing.assert_array_equal(states.num_kf.numpy(), np.asarray(jstates.num_kf))
         np.testing.assert_array_equal(states.frame_count.numpy(), np.asarray(jstates.frame_count))
+    return commits
+
+
+def test_step_matches_jax_multi_sequence_step(world):
+    cam, seqs = world
+    cfg = tiny_cfg(pose_prediction="constant_velocity")
+    mesh = jax_make_mesh({"seq": 2, "lm": 4})
+    jms = JaxMultiSlam(JaxCamera(*cam), [JaxArraySource(s.frames) for s in seqs], mesh,
+                       JaxSlamConfig(**dataclasses.asdict(cfg)))
+    assert jms.initialize()
+    commits = _against_jax_lockstep(world, mesh, jms.frontend, jms.states, cfg)
     assert commits > 0  # the commit path ran on some row
+
+
+def test_step_matches_jax_multi_sequence_step_forced_commits(world, jax_boot):
+    """(g) (b): both rows commit on each of the 6 lockstep frames (one
+    commit over the two rows each), from JAX's bootstrapped states, under
+    the one-step rule (test_step_matches_jax_multi_sequence_step_predictions
+    says why: carried over six commits, one weak-depth point of row 0
+    leaves the two packages' maps apart at the fifth, 138 points against
+    137, and the pose 6.5e-4 rad apart)."""
+    mesh, jfrontend, jstates = jax_boot
+    cfg = tiny_cfg(pose_prediction="constant_velocity", **FORCED)
+    assert _against_jax_lockstep(world, mesh, jfrontend, jstates, cfg, one_step=True) == 12
 
 
 def test_loss_recovery_archives_only_the_cut_sequence():
@@ -377,6 +494,27 @@ def test_batched_twins_equal_single_calls():
     for s in range(S):
         assert torch.equal(out[s], k3.motion_ba_lm(*[a[s] for a in margs], **kw))
 
+    # K4: S commit problems of P points, each its own free slot of F = 6
+    # cameras and its own frozen points.
+    F = 6
+    rv = rng.normal(0, 0.01, (S, F, 3)).astype(np.float32)
+    tv = rng.normal(0, 0.3, (S, F, 3)).astype(np.float32)
+    Xp = np.concatenate([rng.uniform(-3, 3, (S, P, 2)), rng.uniform(6, 12, (S, P, 1))], -1)
+    obs_cam = rng.integers(0, F, (S, P, O))
+    obs_uv = rng.uniform(0, 320, (S, P, O, 2)).astype(np.float32)
+    obs_uv[..., :] = 240.0 * Xp[:, :, None, :2] / Xp[:, :, None, 2:] + 160.0 + rng.normal(
+        0, 1.0, (S, P, O, 2))
+    sargs = [torch.from_numpy(a) for a in (
+        rv, tv, Xp.astype(np.float32), obs_cam.astype(np.int64), obs_uv,
+        rng.uniform(size=(S, P, O)) < 0.8, np.arange(P)[None, :] >= np.array([[0], [20], [50]]),
+        np.array([F - 1, 2, 0]))]
+    kw = dict(fx=240.0, cx=160.0, cy=120.0, max_iters=4, huber_delta=0.01)
+    out, pts = k4.structure_ba_lm(*sargs, **kw)
+    assert out.shape == (S, 8) and pts.shape == (S, P, 3)
+    for s in range(S):
+        one, one_pts = k4.structure_ba_lm(*[a[s] for a in sargs], **kw)
+        assert torch.equal(out[s], one) and torch.equal(pts[s], one_pts)
+
 
 def test_batched_frontend_equals_per_frame(world):
     _, seqs = world
@@ -390,6 +528,9 @@ def test_batched_frontend_equals_per_frame(world):
 
 
 def test_lockstep_frame_launches_and_inactive_rows(world, monkeypatch):
+    """(f): a frame with row 1 inactive, then a frame on which both rows
+    commit (forced): one K1, two K2 and two K3 calls each, and on the
+    second one batched K4 twin call of the two rows and no single one."""
     cam, seqs = world
     cfg = tiny_cfg()
     ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
@@ -414,6 +555,14 @@ def test_lockstep_frame_launches_and_inactive_rows(world, monkeypatch):
     assert _equal_states(state_row(states, 1), state_row(before, 1))
     assert not info.is_keyframe[1]
     assert int(states.frame_count[0]) == int(before.frame_count[0]) + 1
+
+    k4_calls = _count_k4(monkeypatch)
+    imgs = torch.from_numpy(np.stack([_u8(seqs[0].frames[5]), _u8(seqs[1].frames[5])]))
+    states, info = tp.slam_step_multi(states, imgs, [True, True], None, cam=cam,
+                                      cfg=tiny_cfg(**FORCED), frontend=ms.frontend)
+    assert info.is_keyframe == [True, True]
+    assert calls == {"k1": 2, "k2": 4, "k3": 4}, calls
+    assert k4_calls == {"batched": [2], "single": 0}, k4_calls
 
 
 def test_sharded_checkpoint_round_trip(world, tmp_path):
