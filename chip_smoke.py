@@ -34,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      one PyTorch call computing the same function (library_ms);
      SuperPoint on the card against the same network on the CPU, and its
      extraction over the multi worlds' eight frames bit-equal to each
-     frame's own;
+     frame's own; the `schur solvers` line: window_ba and full_ba (plain
+     PyTorch) at the commit and refinement shapes, alone and over 8
+     stacked problems, each stacked problem bit-equal to its call alone,
+     with host wall and device launches per call;
   4. five paths, each Slam.initialize() + run_batched(batch=48) with the
      launch counters set to 0 just before and read just after. On the
      304-frame bench world of seed 3 (640x480), with local_ba_window=1 and
@@ -72,8 +75,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      scale configuration without the periodic refinement (`multi_scale`,
      K5 and K2's fallback batched too): the launches a lockstep frame (K5
      twice on the scale one; on each frame where rows commit, K4 once for
-     them at W=1 and none on the scale one, whose commits take the window
-     BA a row at a time; single K4 launches only at the bootstraps and
+     them at W=1, and on the scale one no K4 and one window_ba call of
+     them all; single K4 launches only at the bootstraps and
      re-bootstraps), one synchronising call a lockstep frame
      besides the essential prediction's solver checks (at most 17 a row
      that takes it), total fps (timed in sync debug mode), synchronising
@@ -92,7 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      row. Every one_by_one pass keeps its 8 rows bit-equal to the end. `dist`: a
      world of one over NCCL (FileStore): distributed_full_ba at the
      refinement shape bit-equal to full_ba, and MultiSlam on the mesh with
-     a landmark-sharded refinement every batch, its costs printed;
+     a landmark-sharded refinement every batch, one full_ba call of the 8
+     rows each, its costs printed, and a last refinement's rows each
+     bit-equal to full_ba on the row alone;
   5. the command line, `python -m racing_slam_tpu_torch --synthetic
      --synthetic-frames 96 --out build/cli_smoke --checkpoint-every 4
      --quiet`, in a subprocess on the card: exit 0, its artifacts, the ATE
@@ -1253,44 +1258,74 @@ def schur_problem(rng, dev, P: int, F: int = 32, O: int = 8):
                         torch.ones(F, dtype=torch.bool, device=dev), ones, ones)
 
 
+def _schur_calls(fn, n_walls: int = 5) -> dict:
+    """Host wall per call (median of n_walls, the card synchronised at both
+    ends: the solvers are launch-bound) and device launches per call (one
+    call under torch.profiler) of fn, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n_walls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(wall_ms=float(np.median(walls)), device_launches=n)
+
+
+# Free slots of the stacked window BA check's problems, in turn: the W=4
+# window, and windows padded with -1 as a map of 3 or 4 keyframes pads it.
+SCHUR_WINDOWS = ([31, 30, 29, 28], [31, 30, -1, -1], [31, 30, 29, -1], [30, 31, 28, 29])
+
+
 def time_schur_solvers(dev) -> dict:
     """The headline and scale paths' plain-PyTorch solvers (no Pallas
     kernel in the JAX package, so no kernel here): window_ba at the commit
     shape (window_ba_budget 1024 points x O=8, F=32, W=4) and full_ba at
     the refinement shape (refine_budget 2048 points), 10 iterations each
-    as the main path runs them. Host wall per call (they are launch-bound)
-    and device launches per call."""
+    as the main path runs them; then each over MULTI_S stacked problems
+    with their own data (window_ba: the commit of 8 rows on one lockstep
+    frame, free slots SCHUR_WINDOWS in turn; full_ba: a refinement of 8
+    rows), each problem bit-equal to its call alone (asserted). Host wall
+    and device launches per call (_schur_calls), the stacked calls beside
+    their MULTI_S single calls back to back."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from racing_slam_tpu_torch.ops import ba
     from racing_slam_tpu_torch.ops.camera import Camera
 
     rng = np.random.default_rng(21)
     cam = Camera(480.0, 480.0, 320.0, 240.0, 640, 480)
-
-    def problem(P):
-        return schur_problem(rng, dev, P)
-
-    calls = {"window_ba": (lambda p=problem(1024), s=torch.tensor([31, 30, 29, 28], device=dev):
-                           ba.window_ba(cam, p, s, max_iters=10, huber_delta=0.005)),
-             "full_ba": (lambda p=problem(2048):
-                         ba.full_ba(cam, p, max_iters=10, huber_delta=0.005))}
+    kw = dict(max_iters=10, huber_delta=0.005)
+    win = [schur_problem(rng, dev, 1024) for _ in range(MULTI_S)]
+    slots = torch.tensor([SCHUR_WINDOWS[i % len(SCHUR_WINDOWS)] for i in range(MULTI_S)],
+                         device=dev)
+    ref = [schur_problem(rng, dev, 2048) for _ in range(MULTI_S)]
+    stack = lambda ps: ba.BAProblem(*[torch.stack(x) for x in zip(*ps)])  # noqa: E731
+    win_s, ref_s = stack(win), stack(ref)
+    singles = {"window_ba": [lambda p=p, s=s: ba.window_ba(cam, p, s, **kw)
+                             for p, s in zip(win, slots)],
+               "full_ba": [lambda p=p: ba.full_ba(cam, p, **kw) for p in ref]}
+    stacked = {"window_ba": lambda: ba.window_ba(cam, win_s, slots, **kw),
+               "full_ba": lambda: ba.full_ba(cam, ref_s, **kw)}
     out = {}
-    for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        out[name] = dict(wall_ms=float(np.median(walls)), device_launches=n)
+    for name, calls in singles.items():
+        got = stacked[name]()
+        for i, one in enumerate(calls):
+            assert all(torch.equal(a[i], b) for a, b in zip(got, one())), \
+                f"{name}: stacked problem {i} != its call alone"
+        out[name] = _schur_calls(calls[0])
+        out[f"{name}[{'C' if name == 'window_ba' else 'B'}={MULTI_S}]"] = dict(
+            bit_equal_to_single_calls=True, **_schur_calls(stacked[name]),
+            **{f"{MULTI_S}_single_{k}": v
+               for k, v in _schur_calls(lambda calls=calls: [f() for f in calls], 3).items()})
     log("schur solvers: " + json.dumps(out))
     return out
 
@@ -1793,7 +1828,8 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     on the banded matcher, no K1 under SuperPoint, eight K6 calls where
     every row takes the essential prediction under LightGlue), each for
     all 8 rows, and on each lockstep frame where rows commit one K4 call
-    for them at W=1 (none at W>1) and eight K6 calls under LightGlue;
+    for them at W=1 (at W>1 none, and one window_ba call of them all) and
+    eight K6 calls under LightGlue;
     single K4 launches only at the bootstraps and re-bootstraps; and,
     under torch.cuda's sync debug mode, one synchronising
     call a lockstep frame besides the essential prediction's solver checks
@@ -1807,6 +1843,7 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     import torch
 
     from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
+    from racing_slam_tpu_torch.slam import pipeline
     from racing_slam_tpu_torch.utils.metrics import rotation_errors_deg
     from racing_slam_tpu_torch.utils.video import ArraySource
 
@@ -1839,13 +1876,25 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
     commit_frames = 0  # lockstep frames on which a row committed
     run_step = ms._step
 
+    row_commits = 0
+
     def counted_step(*a, **kw):
-        nonlocal commit_frames
+        nonlocal commit_frames, row_commits
         states, info = run_step(*a, **kw)
         commit_frames += any(info.is_keyframe)
+        row_commits += sum(info.is_keyframe)
         return states, info
 
     ms._step = counted_step
+    # The commits' window BA calls (W > 1): the rows of each, by call.
+    window_rows = []
+    run_window_ba = pipeline.window_ba
+
+    def counted_window_ba(cam_, prob, *a, **kw):
+        window_rows.append(prob.points.shape[0] if prob.points.dim() == 3 else 0)
+        return run_window_ba(cam_, prob, *a, **kw)
+
+    pipeline.window_ba = counted_window_ba
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1856,6 +1905,7 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
         torch.cuda.set_sync_debug_mode("default")
     ms._reinit_sequence = run_reinit
     ms._step = run_step
+    pipeline.window_ba = run_window_ba
     flagged = [w for w in caught
                if _synchronising(w) and id(w) not in reinit_warnings]
     sources = Counter(f"{w.filename.split('/')[-1]}:{w.lineno}" for w in flagged)
@@ -1902,12 +1952,20 @@ def _multi_run(path: str, dev, kernels: list, cam, worlds: list) -> tuple:
                lockstep_launches=dict(lockstep), single_launches=single_launches,
                launches_per_lockstep_frame=per_frame, commit_frames=commit_frames,
                k4_per_commit_frame=lockstep["structure_ba_lm"] / max(commit_frames, 1),
+               window_ba_calls=len(window_rows),
+               window_ba_rows_per_call=sum(window_rows) / max(len(window_rows), 1),
                reinits=len(ms.segments),
                finished=int(ms.finished.sum()), sequences_acc=seqs)
     log(f"{path}: " + json.dumps(res))
     assert per_frame == {k: float(v) for k, v in want.items()}, (path, per_frame)
     for k, v in at_commits.items():  # the commits' batched calls, each frame with commits
         assert lockstep[k] == v * commit_frames + want.get(k, 0) * n, (path, k, lockstep[k])
+    # At W > 1 every commit takes the window: one window_ba call of the
+    # committing rows a frame with commits, never one of a single problem.
+    windowed = cfg.local_ba_window > 1
+    assert 0 not in window_rows, (path, Counter(window_rows))
+    assert len(window_rows) == commit_frames * windowed, (path, len(window_rows), commit_frames)
+    assert sum(window_rows) == row_commits * windowed, (path, sum(window_rows), row_commits)
     # Single K4 launches: the 8 bootstraps and the re-bootstraps' own.
     assert single_launches["structure_ba_lm"] == len(frames) + reinit[k4_module], \
         (path, single_launches, dict(reinit))
@@ -2118,16 +2176,22 @@ def run_dist(dev, cam, worlds: list) -> dict:
     (2048 points, F=32, 10 iterations) must equal full_ba to the bit; then
     MultiSlam on the mesh over the S=8 worlds' first DIST_FRAMES frames
     with a landmark-sharded refinement every batch of 16, its costs printed
-    (finite)."""
+    (finite), each refinement one full_ba call of the 8 rows (asserted),
+    and one more refinement after the run with each row bit-equal to
+    full_ba and apply_refinement on that row alone (asserted)."""
     import tempfile
 
     import torch
     import torch.distributed as dist
 
     from racing_slam_tpu_torch.ops import ba
+    from racing_slam_tpu_torch.parallel import dist_ba
     from racing_slam_tpu_torch.parallel.dist_ba import distributed_full_ba
     from racing_slam_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
     from racing_slam_tpu_torch.parallel.multi_seq import MultiSlam
+    from racing_slam_tpu_torch.parallel.refine import apply_refinement, build_global_problem
+    from racing_slam_tpu_torch.slam.state import state_row
+    from racing_slam_tpu_torch.utils.checkpoint import _named_leaves
     from racing_slam_tpu_torch.utils.video import ArraySource
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
@@ -2157,11 +2221,36 @@ def run_dist(dev, cam, worlds: list) -> dict:
             ms = MultiSlam(cam, [ArraySource(w[0][:DIST_FRAMES]) for w in worlds], mesh, cfg,
                            refine_every=1, refine_iters=10, device=dev)
             assert ms.initialize(), "dist: bootstrap failed"
-            n = ms.run_batched(batch=16)
+            solves = []  # the rows of each refinement's full_ba call
+            run_full_ba = dist_ba.full_ba
+
+            def counted_full_ba(cam_, prob, *a, **kw_):
+                solves.append(prob.points.shape[0] if prob.points.dim() == 3 else 0)
+                return run_full_ba(cam_, prob, *a, **kw_)
+
+            dist_ba.full_ba = counted_full_ba
+            try:
+                n = ms.run_batched(batch=16)
+                # One more refinement, each row against full_ba and the
+                # write-back on that row alone.
+                rows = ms.states_per_sequence()
+                ms.refine_map()
+            finally:
+                dist_ba.full_ba = run_full_ba
             costs = [c.cpu().tolist() for c in ms.refine_costs]
+            assert solves == [len(worlds)] * len(costs), ("dist: not one full_ba a refinement",
+                                                           solves, len(costs))
+            for i, row in enumerate(rows):
+                one = ba.full_ba(cam, build_global_problem(row), max_iters=10)
+                want = _named_leaves(apply_refinement(row, one))
+                got_row = _named_leaves(state_row(ms.states, i))
+                assert all(torch.equal(got_row[k], want[k]) for k in want), \
+                    f"dist: refined row {i} != full_ba on the row alone"
+                assert torch.equal(ms.refine_costs[-1][i], one.cost), i
             res = dict(backend=str(dist.get_backend()), ranks=world, bit_equal_to_full_ba=True,
                        cost=float(got.cost), lockstep_frames=n, refines=len(costs),
-                       refine_costs=costs, **walls)
+                       full_ba_calls=len(solves), rows_per_full_ba=solves[0],
+                       rows_bit_equal_to_their_full_ba=len(rows), refine_costs=costs, **walls)
             log("dist: " + json.dumps(res))
             assert len(costs) >= 1 and np.isfinite(costs).all(), costs
         finally:

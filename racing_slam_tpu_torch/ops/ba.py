@@ -21,7 +21,13 @@ PyTorch here: one point elimination (``build_reduced_system`` over all
 cameras, the window's W slots for ``window_ba``), ``solve_camera_system``
 and ``back_substitute_points``. Their LM loops run a fixed number of
 iterations with a device-side stop flag instead of reading the JAX
-while_loop's exit condition back to the host.
+while_loop's exit condition back to the host. Both take C problems of one
+shape stacked on a leading axis (MultiSlam's commits of the rows that
+commit on one lockstep frame, its refinement of every row), as the JAX
+package vmaps them: the elementwise work runs once over the stack, the
+library calls a problem at a time (se3.per_problem), and each problem
+stops on its own iteration, so that it gets the bits of its solve alone;
+an unstacked call runs the operations it always did.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from .camera import Camera
-from .se3 import exp_so3
+from .se3 import exp_so3, per_problem
 
 HUBER_DELTA = math.sqrt(5.991)
 MAX_ITERS = 10
@@ -293,9 +299,28 @@ class BAResult(NamedTuple):
     num_residuals: torch.Tensor
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """x[idx] over x's first dim; with `stacked`, within each problem
+    (x [C, N, ...], idx [C, ...])."""
+    if not stacked:
+        return x[idx]
+    C = x.shape[0]
+    return x[torch.arange(C, device=x.device).reshape(C, *[1] * (idx.dim() - 1)), idx]
+
+
+def _bcast(m: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-problem value m ([C], or 0-d for one problem) shaped to
+    broadcast over the trailing dims of `like`."""
+    return m.reshape(*m.shape, *[1] * (like.dim() - m.dim())) if m.dim() else m
+
+
 def obs_include(prob: BAProblem) -> tuple[torch.Tensor, torch.Tensor]:
-    """(include [P, O], safe_cam [P, O]): observations whose residuals count."""
-    safe_cam = torch.clamp(prob.obs_cam, 0, prob.cam_rvec.shape[0] - 1).long()
+    """(include [P, O], safe_cam [P, O]): observations whose residuals
+    count ([C, P, O] each for C stacked problems)."""
+    safe_cam = torch.clamp(prob.obs_cam, 0, prob.cam_rvec.shape[-2] - 1).long()
+    if prob.points.dim() == 3:
+        in_cam = torch.gather(prob.cam_in_problem, 1, safe_cam.flatten(1)).reshape(safe_cam.shape)
+        return prob.obs_valid & in_cam & prob.point_in_problem[..., None], safe_cam
     include = prob.obs_valid & prob.cam_in_problem[safe_cam] & prob.point_in_problem[:, None]
     return include, safe_cam
 
@@ -303,9 +328,11 @@ def obs_include(prob: BAProblem) -> tuple[torch.Tensor, torch.Tensor]:
 def _camera_points(cam: Camera, prob: BAProblem):
     """(R [P, O, 3, 3], points in each observing camera [P, O, 3], the
     normalised observations [P, O, 2]) with one rotation matrix per camera."""
+    stacked = prob.points.dim() == 3
     _, safe_cam = obs_include(prob)
-    R = exp_so3(prob.cam_rvec)[safe_cam]
-    Xc = torch.einsum("poij,pj->poi", R, prob.points) + prob.cam_t[safe_cam]
+    R = _take(exp_so3(prob.cam_rvec), safe_cam, stacked)
+    Xc = per_problem(stacked, lambda r, x: torch.einsum("poij,pj->poi", r, x), R, prob.points) \
+        + _take(prob.cam_t, safe_cam, stacked)
     n = torch.stack([(prob.obs_uv[..., 0] - cam.cx) / cam.fx,
                      (prob.obs_uv[..., 1] - cam.cy) / cam.fx], dim=-1)
     return R, Xc, n
@@ -320,7 +347,8 @@ def _problem_cost(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA
     z = Xc[..., 2:]
     r = Xc[..., :2] / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z) - n
     s = torch.sum(r * r, dim=-1)
-    return torch.sum(torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
+    return per_problem(prob.points.dim() == 3, torch.sum,
+                       torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
 
 
 def _obs_terms(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA):
@@ -332,6 +360,7 @@ def _obs_terms(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA):
     on the card; the values agree to float32 rounding."""
     from .se3 import hat
 
+    stacked = prob.points.dim() == 3
     include, safe_cam = obs_include(prob)
     R, Xc, n = _camera_points(cam, prob)
     z = Xc[..., 2]
@@ -340,32 +369,48 @@ def _obs_terms(cam: Camera, prob: BAProblem, huber_delta: float = HUBER_DELTA):
     r = g - n
     eye2 = torch.eye(2, dtype=g.dtype, device=g.device).expand(*g.shape[:-1], 2, 2)
     A = inv_z[..., None, None] * torch.cat([eye2, -g[..., None]], dim=-1)  # [P, O, 2, 3]
-    dpdv = -(R @ hat(prob.points)[:, None]) @ right_jacobian_so3(prob.cam_rvec)[safe_cam]
-    Jc = torch.cat([A @ dpdv, A], dim=-1)
-    Jp = A @ R
+    Jr = _take(right_jacobian_so3(prob.cam_rvec), safe_cam, stacked)
+
+    def products(R, hX, Jr, A):
+        dpdv = -(R @ hX) @ Jr
+        return A @ dpdv, A @ R
+
+    A_dpdv, Jp = per_problem(stacked, products, R, hat(prob.points)[..., None, :, :], Jr, A)
+    Jc = torch.cat([A_dpdv, A], dim=-1)
     s = torch.sum(r * r, dim=-1)
     w = torch.where(include, huber_weight(s, huber_delta), torch.zeros_like(s))
     return r, s, w, Jc, Jp, include, safe_cam
 
 
 def _damped(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """Ceres-style scaled-diagonal damping H + lam diag(H) + 1e-9 I."""
+    """Ceres-style scaled-diagonal damping H + lam diag(H) + 1e-9 I (lam
+    [C] for C stacked problems)."""
     n = H.shape[-1]
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
     d = torch.diagonal(H, dim1=-2, dim2=-1)
-    return H + lam * d[..., :, None] * eye + 1e-9 * eye
+    return H + _bcast(lam, H) * d[..., :, None] * eye + 1e-9 * eye
 
 
 def _add_block_diag(S: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """S[a, a] += blocks[a] for S [n, n, k, k], blocks [n, k, k]."""
-    n = S.shape[0]
+    """S[a, a] += blocks[a] for S [..., n, n, k, k], blocks [..., n, k, k]."""
+    n = S.shape[-4]
     on_diag = torch.eye(n, dtype=torch.bool, device=S.device)[:, :, None, None]
-    return torch.where(on_diag, S + blocks[:, None], S)
+    return torch.where(on_diag, S + blocks[..., :, None, :, :], S)
 
 
-def _add_drop(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+def _add_drop(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              stacked: bool = False) -> torch.Tensor:
     """x.at[idx].add(vals, mode="drop"): rows with idx outside [0, N) go to a
-    sentinel row N that is sliced off."""
+    sentinel row N that is sliced off. With `stacked`, within each problem
+    of x [C, N, ...] by idx [C, n]: the problems laid end to end, so that no
+    two share a target."""
+    if stacked:
+        C, N = x.shape[:2]
+        ok = (idx >= 0) & (idx < N)
+        at = torch.where(ok, idx + N * torch.arange(C, device=idx.device)[:, None],
+                         torch.full_like(idx, C * N))
+        return _add_drop(x.reshape(C * N, *x.shape[2:]), at.reshape(-1),
+                         vals.reshape(-1, *vals.shape[2:])).reshape(x.shape)
     N = x.shape[0]
     tgt = torch.where((idx >= 0) & (idx < N), idx, torch.full_like(idx, N)).long()
     ext = torch.cat([x, torch.zeros_like(x[:1])], dim=0)
@@ -373,7 +418,8 @@ def _add_drop(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.T
 
 
 class ReducedSystem(NamedTuple):
-    """Output of landmark elimination (summable over landmark shards)."""
+    """Output of landmark elimination (summable over landmark shards); each
+    field with a leading problem axis for stacked problems."""
 
     S: torch.Tensor  # [C, C, 6, 6] reduced camera Hessian (C cameras or window slots)
     g_red: torch.Tensor  # [C, 6] reduced gradient
@@ -391,30 +437,40 @@ def _eliminate_points(
 
     The camera blocks are staged as per-observation outer products times the
     one-hot (two matrix products, every intermediate [P*O, 36]), as the JAX
-    package does; damping is H + lam diag(H) + 1e-9 I."""
-    P, O, C = onehot.shape
+    package does; damping is H + lam diag(H) + 1e-9 I. For stacked problems
+    the products and sums run a problem at a time (se3.per_problem), the
+    rest over the stack."""
+    stacked = prob.points.dim() == 3
+    P, O, C = onehot.shape[-3:]
     r, s, w, Jc, Jp, include, _ = _obs_terms(cam, prob, huber_delta)
-    cost = torch.sum(torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s)))
-
     Jc_w = Jc * w[..., None, None]  # [P, O, 2, 6]
-    N = P * O
-    oh_n = onehot.reshape(N, C)
-    G = torch.einsum("nri,nrj->nij", Jc_w.reshape(N, 2, 6), Jc.reshape(N, 2, 6))
-    Hcc = (oh_n.T @ G.reshape(N, 36)).reshape(C, 6, 6)
-    g_cn = torch.einsum("nri,nr->ni", Jc_w.reshape(N, 2, 6), r.reshape(N, 2))
-    g_c = oh_n.T @ g_cn  # [C, 6]
-
     Jp_w = Jp * w[..., None, None]
-    Hpp = torch.einsum("pori,porj->pij", Jp_w, Jp)
-    g_p = torch.einsum("pori,por->pi", Jp_w, r)
-    W = torch.einsum("pori,porj->poij", Jc_w, Jp)  # [P, O, 6, 3]
+    terms = torch.where(include, huber_cost(s, huber_delta), torch.zeros_like(s))
 
-    Hpp_inv = inv3x3(_damped(Hpp, lam)) * prob.point_free[:, None, None]
-    Y = torch.einsum("poc,poik->pcik", onehot, W)  # [P, C, 6, 3]
-    Z = torch.einsum("pcik,pkl->pcil", Y, Hpp_inv)
-    S = _add_block_diag(-torch.einsum("pail,pbjl->abij", Z, Y), _damped(Hcc, lam))
-    g_red = g_c - torch.einsum("pcik,pk->ci", Z, g_p)
-    return ReducedSystem(S=S, g_red=g_red, Hpp_inv=Hpp_inv, g_p=g_p, W=W), cost
+    def blocks(terms, Jc_w, Jc, Jp_w, Jp, r, onehot):
+        N = P * O
+        oh_n = onehot.reshape(N, C)
+        G = torch.einsum("nri,nrj->nij", Jc_w.reshape(N, 2, 6), Jc.reshape(N, 2, 6))
+        Hcc = (oh_n.T @ G.reshape(N, 36)).reshape(C, 6, 6)
+        g_cn = torch.einsum("nri,nr->ni", Jc_w.reshape(N, 2, 6), r.reshape(N, 2))
+        g_c = oh_n.T @ g_cn  # [C, 6]
+        Hpp = torch.einsum("pori,porj->pij", Jp_w, Jp)
+        g_p = torch.einsum("pori,por->pi", Jp_w, r)
+        W = torch.einsum("pori,porj->poij", Jc_w, Jp)  # [P, O, 6, 3]
+        Y = torch.einsum("poc,poik->pcik", onehot, W)  # [P, C, 6, 3]
+        return torch.sum(terms), Hcc, g_c, Hpp, g_p, W, Y
+
+    cost, Hcc, g_c, Hpp, g_p, W, Y = per_problem(stacked, blocks, terms, Jc_w, Jc, Jp_w, Jp, r,
+                                                 onehot)
+    Hpp_inv = inv3x3(_damped(Hpp, lam)) * prob.point_free[..., None, None]
+
+    def reduce(Y, Hpp_inv, g_p):
+        Z = torch.einsum("pcik,pkl->pcil", Y, Hpp_inv)
+        return torch.einsum("pail,pbjl->abij", Z, Y), torch.einsum("pcik,pk->ci", Z, g_p)
+
+    ZY, Zg = per_problem(stacked, reduce, Y, Hpp_inv, g_p)
+    S = _add_block_diag(-ZY, _damped(Hcc, lam))
+    return ReducedSystem(S=S, g_red=g_c - Zg, Hpp_inv=Hpp_inv, g_p=g_p, W=W), cost
 
 
 def build_reduced_system(
@@ -422,7 +478,7 @@ def build_reduced_system(
 ) -> tuple[ReducedSystem, torch.Tensor]:
     """Eliminate the points: the reduced camera system over all F cameras
     of one landmark set and the robust cost of the current parameters."""
-    F = prob.cam_rvec.shape[0]
+    F = prob.cam_rvec.shape[-2]
     _, safe_cam = obs_include(prob)
     onehot = (safe_cam[..., None] == torch.arange(F, device=safe_cam.device))
     return _eliminate_points(cam, prob, lam, onehot.to(prob.points.dtype), huber_delta)
@@ -433,24 +489,29 @@ def solve_camera_system(S: torch.Tensor, g_red: torch.Tensor,
     """Solve the dense reduced camera system; frozen cameras get zeroed rows
     and columns and an identity block, so their step is exactly zero.
     `solve_ex` reports a singular system in its info tensor instead of
-    reading it back to the host."""
-    F = S.shape[0]
+    reading it back to the host. Stacked systems ([C, F, F, 6, 6]) are
+    solved one problem a call."""
+    F = S.shape[-4]
     m = cam_free.to(S.dtype)
-    S = S * (m[:, None, None, None] * m[None, :, None, None])
+    S = S * (m[..., :, None, None, None] * m[..., None, :, None, None])
     eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
-    S = _add_block_diag(S, (1.0 - m)[:, None, None] * eye6)
-    g = g_red * m[:, None]
-    S_dense = S.permute(0, 2, 1, 3).reshape(F * 6, F * 6)
-    delta, _ = torch.linalg.solve_ex(S_dense, g.reshape(F * 6, 1))
-    return -delta.reshape(F, 6)
+    S = _add_block_diag(S, (1.0 - m)[..., None, None] * eye6)
+    g = g_red * m[..., None]
+    lead = g.shape[:-2]
+    S_dense = S.transpose(-3, -2).reshape(*lead, F * 6, F * 6)
+    delta = per_problem(S.dim() == 5, lambda a, b: torch.linalg.solve_ex(a, b)[0], S_dense,
+                        g.reshape(*lead, F * 6, 1))
+    return -delta.reshape(*lead, F, 6)
 
 
 def back_substitute_points(rs: ReducedSystem, delta_c: torch.Tensor,
                            safe_cam: torch.Tensor) -> torch.Tensor:
     """delta_p = -Hpp_inv (g_p + sum_o W_o^T delta_c[cam_o]); [P, 3]."""
-    dc = delta_c[safe_cam]  # [P, O, 6]
-    Wt_dc = torch.einsum("poij,poi->pj", rs.W, dc)
-    return -torch.einsum("pij,pj->pi", rs.Hpp_inv, rs.g_p + Wt_dc)
+    stacked = rs.W.dim() == 5
+    dc = _take(delta_c, safe_cam, stacked)  # [P, O, 6]
+    Wt_dc = per_problem(stacked, lambda W, d: torch.einsum("poij,poi->pj", W, d), rs.W, dc)
+    return -per_problem(stacked, lambda H, v: torch.einsum("pij,pj->pi", H, v), rs.Hpp_inv,
+                        rs.g_p + Wt_dc)
 
 
 def _no_reduce(xs: list) -> list:
@@ -465,12 +526,15 @@ def _lm(cam: Camera, prob: BAProblem, trial, max_iters: int, init_lambda: float,
     exited (function tolerance or lambda > 1e8). `trial(cr, ct, X, lam)`
     returns the trial parameters. `allreduce` sums a list of tensors over
     the landmark shards of a distributed solve (parallel/dist_ba.py); the
-    costs and the residual count go through it."""
+    costs and the residual count go through it. For C stacked problems
+    cost, lam and the flags are [C] and each problem stops on its own
+    iteration, as it does alone."""
     dev = prob.points.device
+    lead = prob.points.shape[:-2]
     cr, ct, X = prob.cam_rvec, prob.cam_t, prob.points
     cost = allreduce([_problem_cost(cam, prob, huber_delta)])[0]
-    lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    lam = torch.full(lead, init_lambda, dtype=torch.float32, device=dev)
+    done = torch.zeros(lead, dtype=torch.bool, device=dev)
     for _ in range(max_iters):
         cr_n, ct_n, X_n = trial(cr, ct, X, lam)
         new_cost = allreduce([_problem_cost(
@@ -478,16 +542,16 @@ def _lm(cam: Camera, prob: BAProblem, trial, max_iters: int, init_lambda: float,
         accept = new_cost < cost
         stop = (accept & (cost - new_cost <= FUNCTION_TOLERANCE * cost)) | (lam > 1e8)
         take = accept & ~done
-        cr = torch.where(take, cr_n, cr)
-        ct = torch.where(take, ct_n, ct)
-        X = torch.where(take, X_n, X)
+        cr = torch.where(_bcast(take, cr), cr_n, cr)
+        ct = torch.where(_bcast(take, ct), ct_n, ct)
+        X = torch.where(_bcast(take, X), X_n, X)
         lam = torch.where(done, lam, torch.where(accept, torch.clamp(lam / 3.0, min=1e-9),
                                                  lam * 2.5))
         cost = torch.where(take, new_cost, cost)
         done = done | stop
     include, _ = obs_include(prob)
     return BAResult(cam_rvec=cr, cam_t=ct, points=X, cost=cost,
-                    num_residuals=allreduce([include.sum()])[0])
+                    num_residuals=allreduce([include.sum(dim=(-2, -1))])[0])
 
 
 def window_ba(
@@ -503,23 +567,28 @@ def window_ba(
     Every coupling tensor is [P, W, ...]; `prob.cam_free` is ignored, the
     free set is the valid entries of `free_slots`. Frozen cameras anchor
     through the point blocks. Plain PyTorch: the JAX package has no Pallas
-    kernel here."""
-    W = free_slots.shape[0]
+    kernel here. C problems of one shape, stacked on a leading axis of
+    every field with [C, W] `free_slots`, are one call; each problem's
+    result is its solve alone, to the bit."""
+    stacked = prob.points.dim() == 3
+    W = free_slots.shape[-1]
     slot_ok = free_slots >= 0
-    in_slot = prob.obs_cam[..., None] == torch.where(slot_ok, free_slots, -2)  # [P, O, W]
+    in_slot = prob.obs_cam[..., None] == torch.where(slot_ok, free_slots,
+                                                     -2)[..., None, None, :]  # [P, O, W]
     onehot = in_slot.to(prob.points.dtype)
     # Each observation's window slot, W (a zero camera step) outside it.
     slot = torch.where(in_slot.any(-1), in_slot.to(torch.uint8).argmax(-1), W)
-    zero_step = torch.zeros((1, 6), dtype=prob.points.dtype, device=prob.points.device)
-    pf = prob.point_free[:, None]
+    zero_step = torch.zeros((*free_slots.shape[:-1], 1, 6), dtype=prob.points.dtype,
+                            device=prob.points.device)
+    pf = prob.point_free[..., None]
 
     def trial(cr, ct, X, lam):
         rs, _ = _eliminate_points(cam, prob._replace(cam_rvec=cr, cam_t=ct, points=X), lam,
                                   onehot, huber_delta)
         delta_c = solve_camera_system(rs.S, rs.g_red, slot_ok)  # [W, 6]
-        delta_p = back_substitute_points(rs, torch.cat([delta_c, zero_step]), slot)
-        return (_add_drop(cr, free_slots, delta_c[:, :3]),
-                _add_drop(ct, free_slots, delta_c[:, 3:]), X + delta_p * pf)
+        delta_p = back_substitute_points(rs, torch.cat([delta_c, zero_step], dim=-2), slot)
+        return (_add_drop(cr, free_slots, delta_c[..., :3], stacked),
+                _add_drop(ct, free_slots, delta_c[..., 3:], stacked), X + delta_p * pf)
 
     return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta)
 
@@ -535,7 +604,9 @@ def full_ba(
     """Schur-complement LM over keyframes and points (the periodic
     refinement's solver): reduced camera system, dense solve, point
     back-substitution, accept/reject. Plain PyTorch: the JAX package has
-    no Pallas kernel here.
+    no Pallas kernel here. C problems of one shape, stacked on a leading
+    axis of every field, are one call, each problem's result its solve
+    alone to the bit.
 
     The distributed solver (parallel/dist_ba.py) is this loop over a
     landmark shard: `prob` then holds the shard's points, and `allreduce`
@@ -543,10 +614,10 @@ def full_ba(
     and their costs; the camera solve is the same on every shard and the
     back-substitution stays local. By default nothing is reduced: the
     single-device solver."""
-    F = prob.cam_rvec.shape[0]
+    F = prob.cam_rvec.shape[-2]
     safe_cam = torch.clamp(prob.obs_cam, 0, F - 1).long()
-    cf = prob.cam_free[:, None]
-    pf = prob.point_free[:, None]
+    cf = prob.cam_free[..., None]
+    pf = prob.point_free[..., None]
 
     def trial(cr, ct, X, lam):
         rs, _ = build_reduced_system(cam, prob._replace(cam_rvec=cr, cam_t=ct, points=X), lam,
@@ -554,7 +625,7 @@ def full_ba(
         S, g_red = allreduce([rs.S, rs.g_red])
         delta_c = solve_camera_system(S, g_red, prob.cam_free)
         delta_p = back_substitute_points(rs, delta_c, safe_cam)
-        return cr + delta_c[:, :3] * cf, ct + delta_c[:, 3:] * cf, X + delta_p * pf
+        return cr + delta_c[..., :3] * cf, ct + delta_c[..., 3:] * cf, X + delta_p * pf
 
     return _lm(cam, prob, trial, max_iters, init_lambda, huber_delta, allreduce)
 
@@ -574,15 +645,12 @@ def structure_ba(
     bit."""
     from .kernels.structure_ba import structure_ba_lm
 
-    if prob.points.dim() == 3:  # obs_include row by row
-        C, F = prob.cam_rvec.shape[:2]
-        safe_cam = torch.clamp(prob.obs_cam, 0, F - 1).long()
-        in_cam = torch.gather(prob.cam_in_problem, 1, safe_cam.flatten(1)).reshape(safe_cam.shape)
-        include = prob.obs_valid & in_cam & prob.point_in_problem[..., None]
+    include, _ = obs_include(prob)
+    if prob.points.dim() == 3:
+        C = prob.points.shape[0]
         free_slot = free_slot.long().reshape(C)
         idx = (torch.arange(C, device=free_slot.device), free_slot)
     else:
-        include, _ = obs_include(prob)
         free_slot = torch.as_tensor(free_slot, device=prob.points.device).long().reshape(())
         idx = (free_slot.reshape(1),)
     out, points = structure_ba_lm(

@@ -29,6 +29,21 @@ def matmul_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def per_problem(stacked: bool, fn, *xs: torch.Tensor):
+    """fn(*xs) for one problem; for C stacked problems (a leading C on every
+    x), fn of each problem's operands, the outputs stacked (one tensor or a
+    tuple of them). A library call (a product, a sum over many terms, a
+    solve) may pick its kernel, and so its order of summing, by its
+    operands' shapes: at one problem's shapes each problem gets the bits it
+    gets alone. Elementwise work runs over the stack outside fn."""
+    if not stacked:
+        return fn(*xs)
+    outs = [fn(*row) for row in zip(*xs)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [w]_x for w[..., 3] -> [..., 3, 3]."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]

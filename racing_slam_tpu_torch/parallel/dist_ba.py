@@ -49,12 +49,15 @@ def _group_allreduce(group):
 
 
 def shard_problem(prob: BAProblem, n: int, r: int) -> BAProblem:
-    """Shard r of n of the problem's points (a contiguous block)."""
-    P = prob.points.shape[0]
+    """Shard r of n of the problem's points (a contiguous block); of each
+    problem's points for stacked problems."""
+    stacked = prob.points.dim() == 3
+    P = prob.points.shape[-2]
     if P % n != 0:
         raise ValueError(f"point capacity {P} not divisible by {n} shards")
     lo, hi = r * P // n, (r + 1) * P // n
-    return prob._replace(**{f: getattr(prob, f)[lo:hi] for f in _POINT_FIELDS})
+    return prob._replace(**{f: getattr(prob, f)[:, lo:hi] if stacked else getattr(prob, f)[lo:hi]
+                            for f in _POINT_FIELDS})
 
 
 def distributed_full_ba(
@@ -70,7 +73,9 @@ def distributed_full_ba(
     every rank of the group) split over `mesh`'s `axis`. The point capacity
     must be divisible by the axis size (pad with obs_valid=False rows:
     padding contributes nothing); ValueError otherwise. Returns the whole
-    problem's result on every rank."""
+    problem's result on every rank. Stacked problems (a leading B on every
+    field) are one solve, their systems and costs in one all-reduce an
+    iteration."""
     n = axis_size(mesh, axis)
     group = axis_group(mesh, axis)
     shard = shard_problem(prob, n, axis_rank(mesh, axis))
@@ -83,7 +88,7 @@ def distributed_full_ba(
         return res
     parts = [torch.empty_like(res.points) for _ in range(n)]
     dist.all_gather(parts, res.points.contiguous(), group=group)
-    return res._replace(points=torch.cat(parts))
+    return res._replace(points=torch.cat(parts, dim=-2))
 
 
 def batched_distributed_full_ba(
@@ -99,15 +104,15 @@ def batched_distributed_full_ba(
     `lm_axis`: the multi-sequence shape. Every leaf of `prob_batch` has a
     leading B, this rank's sequence rows (the 'seq' axis is data parallel:
     the other seq coordinates solve their own rows, with no communication
-    between them). Each row is distributed_full_ba over the lm group, in
-    row order on every rank of it. Returns a BAResult with the leading B."""
-    B, P = prob_batch.points.shape[:2]
+    between them). The B rows are one full_ba call (ops/ba.py's stacked
+    solve) over the lm group: one all-reduce an iteration of the stacked
+    [B, F, F, 6, 6] and [B, F, 6] systems and one of the [B] costs, the
+    counterpart of the JAX package's psum under vmap. Each row is its
+    distributed_full_ba alone, to the bit. Returns a BAResult with the
+    leading B."""
+    P = prob_batch.points.shape[1]
     n_lm = axis_size(mesh, lm_axis)
     if P % n_lm != 0:
         raise ValueError(f"point capacity {P} not divisible by {n_lm}")
-    results = [
-        distributed_full_ba(cam, BAProblem(*[x[b] for x in prob_batch]), mesh, lm_axis,
-                            max_iters, init_lambda, huber_delta)
-        for b in range(B)
-    ]
-    return BAResult(*[torch.stack(xs) for xs in zip(*results)])
+    return distributed_full_ba(cam, prob_batch, mesh, lm_axis, max_iters, init_lambda,
+                               huber_delta)

@@ -17,24 +17,26 @@ import torch
 from ..ops import se3
 from ..ops.ba import HUBER_DELTA, BAProblem, BAResult
 from ..ops.camera import Camera
-from ..slam.state import SlamState, get_row, set_drop, set_state_row, state_row
+from ..slam.state import SlamState, row_of, set_drop, take
 
 
 def gauge_anchor_mask(kfs_valid: torch.Tensor, frame_index: torch.Tensor) -> torch.Tensor:
-    """[F] bool: True for the two oldest valid keyframes (frozen anchors)."""
-    F = kfs_valid.shape[0]
+    """[F] bool: True for the two oldest valid keyframes (frozen anchors);
+    [S, F] for stacked states."""
+    F = kfs_valid.shape[-1]
     big = torch.iinfo(frame_index.dtype).max
     order = torch.where(kfs_valid, frame_index, torch.full_like(frame_index, big))
-    oldest = torch.argmin(order)
-    second = torch.argmin(torch.where(torch.arange(F, device=order.device) == oldest,
-                                      torch.full_like(order, big), order))
+    oldest = torch.argmin(order, dim=-1, keepdim=True)
     idx = torch.arange(F, device=order.device)
+    second = torch.argmin(torch.where(idx == oldest, torch.full_like(order, big), order),
+                          dim=-1, keepdim=True)
     return ((idx == oldest) | (idx == second)) & kfs_valid
 
 
 def build_global_problem(state: SlamState) -> BAProblem:
     """BAProblem over the FULL live map: all valid keyframes but the two
-    gauge anchors free, all valid points free."""
+    gauge anchors free, all valid points free. Stacked states give stacked
+    problems."""
     kfs, m = state.kfs, state.map
     anchors = gauge_anchor_mask(kfs.valid, kfs.frame_index)
     return BAProblem(
@@ -42,8 +44,8 @@ def build_global_problem(state: SlamState) -> BAProblem:
         cam_t=kfs.t,
         points=m.pos,
         obs_cam=m.obs_kf,
-        obs_uv=kfs.kp_xy[m.obs_kf, m.obs_kp],
-        obs_valid=m.obs_valid & m.valid[:, None],
+        obs_uv=take(kfs.kp_xy, m.obs_kf, m.obs_kp, stacked=m.valid.dim() == 2),
+        obs_valid=m.obs_valid & m.valid[..., None],
         cam_free=kfs.valid & ~anchors,
         cam_in_problem=kfs.valid,
         point_free=m.valid,
@@ -79,13 +81,16 @@ def build_global_problem_compact(
 
 
 def apply_refinement(state: SlamState, res: BAResult) -> SlamState:
-    """Write refined poses and points into the state. The in-flight
+    """Write refined poses and points into the state (stacked states and
+    results: every row at once). The in-flight
     tracking poses (last and previous frame) move with the last keyframe's
     correction, T_new = T @ inv(T_kf_old) @ T_kf_new, so the constant
     velocity predictor sees an unchanged relative motion."""
+    stacked = state.map.valid.dim() == 2
     slot = state.last_kf_slot
-    T_old = se3.pose_matrix(get_row(state.kfs.rvec, slot), get_row(state.kfs.t, slot))
-    T_new = se3.pose_matrix(get_row(res.cam_rvec, slot), get_row(res.cam_t, slot))
+    T_old = se3.pose_matrix(row_of(state.kfs.rvec, slot, stacked),
+                            row_of(state.kfs.t, slot, stacked))
+    T_new = se3.pose_matrix(row_of(res.cam_rvec, slot, stacked), row_of(res.cam_t, slot, stacked))
     corr = se3.compose(se3.inverse(T_old), T_new)
     last_rvec, last_t = se3.rt_from_matrix(
         se3.compose(se3.pose_matrix(state.last_rvec, state.last_t), corr))
@@ -117,21 +122,17 @@ def make_refine_step(
     huber_delta: float = HUBER_DELTA,
 ):
     """The stacked-state refinement: fn(states [S, ...]) -> (states, cost
-    [S]). Per row: build_global_problem, the landmark-sharded full BA over
-    `mesh`'s 'lm' axis (batched_distributed_full_ba; single device with no
-    mesh), apply_refinement. The rows are this rank's; they are written
-    back in place (slam.state.set_state_row). As in the JAX package, no
-    cull follows (the single-sequence Slam culls after its refinement)."""
+    [S]): build_global_problem over the stacked states, one landmark-sharded
+    full BA of the S problems over `mesh`'s 'lm' axis
+    (batched_distributed_full_ba; single device with no mesh), and
+    apply_refinement over the stack, as the JAX package vmaps them. The rows
+    are this rank's. As in the JAX package, no cull follows (the
+    single-sequence Slam culls after its refinement)."""
     from .dist_ba import batched_distributed_full_ba
 
     def refine(states: SlamState) -> tuple[SlamState, torch.Tensor]:
-        S = states.num_kf.shape[0]
-        rows = [state_row(states, i) for i in range(S)]
-        probs = BAProblem(*[torch.stack(xs) for xs in zip(*map(build_global_problem, rows))])
-        res = batched_distributed_full_ba(cam, probs, mesh, max_iters=max_iters,
-                                          huber_delta=huber_delta)
-        for i, row in enumerate(rows):
-            set_state_row(states, i, apply_refinement(row, BAResult(*[x[i] for x in res])))
-        return states, res.cost
+        res = batched_distributed_full_ba(cam, build_global_problem(states), mesh,
+                                          max_iters=max_iters, huber_delta=huber_delta)
+        return apply_refinement(states, res), res.cost
 
     return refine

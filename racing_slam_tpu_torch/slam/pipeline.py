@@ -53,6 +53,7 @@ last inter-frame speed).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -181,30 +182,33 @@ def _k4_step(kfs, m, slot, K: int, *, cam: Camera, cfg: SlamConfig):
 
 def _window_step(kfs, m, slot, *, cam: Camera, cfg: SlamConfig):
     """The W newest keyframes free (two always stay frozen as gauge
-    anchors), over the points they observe (window_ba), for one state.
-    Returns (cam_rvec, cam_t, map positions)."""
-    P = m.valid.shape[0]
+    anchors), over the points they observe (window_ba), for one state, or
+    C stacked ones in one window_ba call. Returns (cam_rvec, cam_t, map
+    positions)."""
+    stacked = m.valid.dim() == 2
+    P = m.valid.shape[-1]
     W = cfg.local_ba_window
     newest_first = torch.argsort(
         torch.where(kfs.valid, -kfs.frame_index, torch.full_like(kfs.frame_index, 1 << 30)),
-        stable=True)
-    n_free = torch.clamp(torch.sum(kfs.valid) - 2, 1, W)
-    free_slots = torch.where(torch.arange(W, device=slot.device) < n_free, newest_first[:W],
-                             torch.full_like(newest_first[:W], -1))
+        stable=True)[..., :W]
+    n_free = torch.clamp(torch.sum(kfs.valid, dim=-1) - 2, 1, W)
+    free_slots = torch.where(torch.arange(W, device=slot.device) < n_free[..., None],
+                             newest_first, torch.full_like(newest_first, -1))
     sel, sel_ok = m.ba_point_selection_mask(m.observed_by_any(free_slots) & m.valid,
                                             min(P, cfg.window_ba_budget))
     res = window_ba(cam, _ba_problem(kfs, m, sel, sel_ok, slot), free_slots,
                     max_iters=cfg.ba_iters, huber_delta=_huber(cfg, cam))
-    pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points)
+    pos = set_drop(m.pos, torch.where(sel_ok, sel, torch.full_like(sel, P)), res.points,
+                   stacked=stacked)
     return res.cam_rvec, res.cam_t, pos
 
 
 def _commit_ba(kfs, m, slot, K: int, *, cam: Camera, cfg: SlamConfig, commit_no):
     """The commit BA: the window of the W newest keyframes (W > 1, on the
     hybrid cadence's window turns only) or the reference shape (K4).
-    Stacked states (commit_no: a list, or None) take K4 in one launch for
-    every row whose commit takes the reference shape and window_ba one row
-    at a time for the others (window_ba is plain PyTorch)."""
+    Stacked states (commit_no: a list, or None) take one window_ba call for
+    the rows whose commit takes the window and one K4 launch for the
+    others."""
     W = cfg.local_ba_window
     if W > 1 and cfg.window_ba_every > 1 and commit_no is None:
         raise ValueError("window_ba_every > 1 needs the commit number (commit_no)")
@@ -218,21 +222,22 @@ def _commit_ba(kfs, m, slot, K: int, *, cam: Camera, cfg: SlamConfig, commit_no)
         return _k4_step(kfs, m, slot, K, cam=cam, cfg=cfg)
     C = m.valid.shape[0]
     window = [takes_window(None if commit_no is None else commit_no[i]) for i in range(C)]
+    if all(window):
+        return _window_step(kfs, m, slot, cam=cam, cfg=cfg)
     if not any(window):
         return _k4_step(kfs, m, slot, K, cam=cam, cfg=cfg)
     out = {}
-    k4 = [i for i in range(C) if not window[i]]
-    if k4:  # the rows that take K4, stacked (the solve reads no descriptors)
-        def sub(x):
-            return torch.stack([x[i] for i in k4])
+    for step, take_window in ((_window_step, True), (partial(_k4_step, K=K), False)):
+        rows = [i for i in range(C) if window[i] == take_window]
 
-        kf4 = KeyframeStore(*[None if f == "desc" else sub(x) for f, x in zip(kfs._fields, kfs)])
-        res = _k4_step(kf4, tree_map(sub, m), sub(slot), K, cam=cam, cfg=cfg)
-        out.update({i: [x[j] for x in res] for j, i in enumerate(k4)})
-    for i in range(C):
-        if window[i]:
-            out[i] = _window_step(tree_map(lambda x: x[i], kfs), tree_map(lambda x: x[i], m),
-                                  slot[i], cam=cam, cfg=cfg)
+        def sub(x):  # the rows that take this solver, stacked
+            return torch.stack([x[i] for i in rows])
+
+        # Neither solve reads the descriptors.
+        sub_kfs = KeyframeStore(*[None if f == "desc" else sub(x)
+                                  for f, x in zip(kfs._fields, kfs)])
+        res = step(sub_kfs, tree_map(sub, m), sub(slot), cam=cam, cfg=cfg)
+        out.update({i: [x[j] for x in res] for j, i in enumerate(rows)})
     return tuple(torch.stack(z) for z in zip(*(out[i] for i in range(C))))
 
 
@@ -259,10 +264,8 @@ def _commit_keyframe(
     For C stacked states (a leading C on every leaf and on `img`, `feat`,
     `rvec`, `t`, `matches`; `commit_no` a list) each step runs once over
     the C rows, each row as it would alone: the frame match over the C
-    pairs, kernel K4 in one launch for the rows that take it (_commit_ba).
-    The cull's reprojection errors run one row at a time: a library
-    product and the rotations' sines round by their batch's shape on the
-    CPU."""
+    pairs, one window_ba call and one K4 launch for the rows that take
+    each (_commit_ba), the cull's reprojection errors over the C rows."""
     stacked = state.map.valid.dim() == 2
     lead = state.map.valid.shape[:-1]
     F = cfg.max_keyframes
@@ -338,19 +341,12 @@ def _commit_keyframe(
         cand = (evicted_obs | m.observed_by_any(newest)) & m.valid
         Cb = min(P, cfg.cull_budget)
         csel, csel_ok = m.ba_point_selection_mask(cand, Cb)
-        if stacked:
-            errs = [(*point_reprojection_errors_sel(cam, mi, ki, csel[i], csel_ok[i]),
-                     *point_reprojection_errors(cam, mi, ki))
-                    for i, (mi, ki) in enumerate(zip(_rows_of(m), _rows_of(kfs)))]
-            err_c, has_c, err_f, has_f = (torch.stack(z) for z in zip(*errs))
-        else:
-            err_c, has_c = point_reprojection_errors_sel(cam, m, kfs, csel, csel_ok)
+        err_c, has_c = point_reprojection_errors_sel(cam, m, kfs, csel, csel_ok)
         bad = csel_ok & has_c & (err_c > cfg.cull_reproj_px)
         rm_compact = set_drop(torch.zeros((*lead, P), dtype=torch.bool, device=dev),
                               torch.where(bad, csel, torch.full_like(csel, P)), True,
                               stacked=stacked)
-        if not stacked:
-            err_f, has_f = point_reprojection_errors(cam, m, kfs)
+        err_f, has_f = point_reprojection_errors(cam, m, kfs)
         rm_full = m.valid & has_f & (err_f > cfg.cull_reproj_px)
         remove = torch.where((torch.sum(cand, dim=-1) <= Cb)[..., None], rm_compact, rm_full)
         m, kfs = remove_points(m, kfs, remove)
@@ -379,11 +375,6 @@ def _commit_keyframe(
         arch_frame_index=arch_fi,
         arch_count=arch_count,
     )
-
-
-def _rows_of(tree) -> list:
-    """The rows of a stacked tree, as views."""
-    return [tree_map(lambda x, i=i: x[i], tree) for i in range(tree[0].shape[0])]
 
 
 def _essential_prediction(state: SlamState, feat: Features, generator, uniforms, *,

@@ -401,11 +401,16 @@ def remove_points(m: MapState, kfs: KeyframeStore, remove: torch.Tensor
 
 
 def _obs_mean_errors(cam: Camera, pos, obs_kf, obs_kp, obs_w, kfs: KeyframeStore):
-    """Mean reprojection error (px) per row over its counted observations."""
+    """Mean reprojection error (px) per row over its counted observations;
+    of each state's points for stacked states (the product a state at a
+    time, se3.per_problem)."""
+    stacked = pos.dim() == 3
     R = se3.exp_so3(kfs.rvec)  # [F, 3, 3], once per keyframe
-    Xc = torch.einsum("noij,nj->noi", R[obs_kf], pos) + kfs.t[obs_kf]
+    Xc = se3.per_problem(stacked, lambda r, x: torch.einsum("noij,nj->noi", r, x),
+                         take(R, obs_kf, stacked=stacked), pos) \
+        + take(kfs.t, obs_kf, stacked=stacked)
     uv = project_camera_points(cam, Xc)
-    err = torch.linalg.norm(uv - kfs.kp_xy[obs_kf, obs_kp], dim=-1)
+    err = torch.linalg.norm(uv - take(kfs.kp_xy, obs_kf, obs_kp, stacked=stacked), dim=-1)
     n = torch.sum(obs_w, dim=-1)
     mean_err = torch.sum(torch.where(obs_w, err, torch.zeros_like(err)), dim=-1) / torch.clamp(
         n, min=1
@@ -414,16 +419,22 @@ def _obs_mean_errors(cam: Camera, pos, obs_kf, obs_kp, obs_w, kfs: KeyframeStore
 
 
 def point_reprojection_errors(cam: Camera, m: MapState, kfs: KeyframeStore):
-    """(mean_err[P], has_obs[P]) over each point's observations."""
-    return _obs_mean_errors(cam, m.pos, m.obs_kf, m.obs_kp, m.obs_valid & m.valid[:, None], kfs)
+    """(mean_err[P], has_obs[P]) over each point's observations ([C, P]
+    each for stacked states)."""
+    return _obs_mean_errors(cam, m.pos, m.obs_kf, m.obs_kp, m.obs_valid & m.valid[..., None],
+                            kfs)
 
 
 def point_reprojection_errors_sel(cam: Camera, m: MapState, kfs: KeyframeStore,
                                   sel: torch.Tensor, sel_ok: torch.Tensor):
-    """point_reprojection_errors over a compacted candidate set [C]."""
+    """point_reprojection_errors over a compacted candidate set [C] ([S, C]
+    for stacked states)."""
+    stacked = sel.dim() == 2
     return _obs_mean_errors(
-        cam, m.pos[sel], m.obs_kf[sel], m.obs_kp[sel],
-        m.obs_valid[sel] & (m.valid[sel] & sel_ok)[:, None], kfs,
+        cam, take(m.pos, sel, stacked=stacked), take(m.obs_kf, sel, stacked=stacked),
+        take(m.obs_kp, sel, stacked=stacked),
+        take(m.obs_valid, sel, stacked=stacked)
+        & (take(m.valid, sel, stacked=stacked) & sel_ok)[..., None], kfs,
     )
 
 

@@ -378,3 +378,70 @@ def test_k3_twin_on_the_path_problem_matches_xla(seed):
     np.testing.assert_allclose(out[3:6], np.asarray(ref.t), atol=1e-4)
     assert abs(out[6] - float(ref.cost)) <= 0.01 * float(ref.cost) + 1e-10
     assert 1 <= out[7] <= 10
+
+
+def _last_move(solve) -> int:
+    """The last LM iteration that moved a solve: the least max_iters whose
+    result equals the solve's at MAX_ITERS, to the bit (a problem frozen by
+    the function tolerance or by rejected steps moves no more)."""
+    final = solve(tba.MAX_ITERS)
+    return next(k for k in range(tba.MAX_ITERS + 1)
+                if all(torch.equal(a, b) for a, b in zip(solve(k), final)))
+
+
+def _stacked_against_single_and_jax_vmap(probs, solve, jax_solve, *args):
+    """`solve` over the stacked problems (and the stacked `args`) against
+    its call on each problem alone, to the bit, and against jax.vmap of
+    `jax_solve` over the same numpy stack within test_window_ba_matches_jax's
+    tolerances; returns each problem's last moving iteration."""
+    import jax
+
+    stacked = jax.tree.map(lambda *x: jnp.stack(x), *probs)
+    want = jax.vmap(jax_solve)(stacked, *[jnp.asarray(a) for a in args])
+    tprob = _tprob(stacked)
+    targs = [torch.from_numpy(np.asarray(a)) for a in args]
+    got = solve(tprob, *targs, tba.MAX_ITERS)
+    assert got.cost.shape == (len(probs),) and got.points.shape == tprob.points.shape
+    moves = []
+    for c in range(len(probs)):
+        one = tba.BAProblem(*[x[c] for x in tprob])
+        single = solve(one, *[a[c] for a in targs], tba.MAX_ITERS)
+        assert all(torch.equal(a[c], b) for a, b in zip(got, single)), c
+        _compare_solves(tba.BAResult(*[x[c] for x in got]),
+                        jax.tree.map(lambda x, c=c: x[c], want), 1e-5, 1e-4)
+        assert int(got.num_residuals[c]) == int(want.num_residuals[c])
+        moves.append(_last_move(lambda k, c=c, one=one: solve(one, *[a[c] for a in targs], k)))
+    return moves
+
+
+def test_window_ba_stacked_equals_single_calls_and_jax_vmap(rng):
+    """window_ba over C = 3 stacked problems (the rows that commit on one
+    lockstep frame): three rigs with their own data, W = 4 free slots
+    [3, 2, -1, -1], [3, -1, -1, -1] and [2, 3, -1, -1]. Each problem equals
+    its call alone to the bit, and jax.vmap of the JAX package's window_ba
+    over the same stack within test_window_ba_matches_jax's tolerances;
+    the problems stop moving on different iterations (each freezes on its
+    own, as it does alone)."""
+    made = [_rig_problem(rng, case)
+            for case in ("window_full_set", "window_partial_set", "window_full_set")]
+    cam = made[0][0]
+    slots = np.array([[3, 2, -1, -1], [3, -1, -1, -1], [2, 3, -1, -1]], np.int32)
+    moves = _stacked_against_single_and_jax_vmap(
+        [p for _, p in made], lambda p, s, k: tba.window_ba(Camera(*cam), p, s, max_iters=k),
+        lambda p, s: jba.window_ba(cam, p, s), slots)
+    assert len(set(moves)) > 1, moves
+
+
+def test_full_ba_stacked_equals_single_calls_and_jax_vmap(rng):
+    """full_ba over B = 3 stacked problems (a refinement of three rows):
+    the keyframe, frozen-point and out-of-problem rigs, each with its own
+    free cameras and points. Each problem equals its call alone to the
+    bit, and jax.vmap of the JAX package's full_ba within
+    test_full_ba_matches_jax's tolerances; the problems stop moving on
+    different iterations."""
+    made = [_rig_problem(rng, case) for case in ("keyframe", "frozen_points", "out_of_problem")]
+    cam = made[0][0]
+    moves = _stacked_against_single_and_jax_vmap(
+        [p for _, p in made], lambda p, k: tba.full_ba(Camera(*cam), p, max_iters=k),
+        lambda p: jba.full_ba(cam, p))
+    assert len(set(moves)) > 1, moves

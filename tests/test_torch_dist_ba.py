@@ -7,7 +7,9 @@ the CPU, against its single-device solver and the JAX package's.
   tests/test_dist_ba.py's tolerances (1e-4 on cameras, 1e-3 on points),
   and an odd point capacity raises on both.
 - Frozen cameras and points stay where they were.
-- batched_distributed_full_ba equals full_ba problem by problem.
+- batched_distributed_full_ba is one full_ba call and equals full_ba
+  problem by problem; over the two gloo ranks its rows equal their
+  distributed solves alone.
 - The port's solve against the JAX package's distributed_full_ba on its
   8-device CPU mesh, on the same numpy problem, at the same tolerances.
 """
@@ -28,7 +30,7 @@ from racing_slam_tpu_torch.parallel.dist_ba import (
 )
 from racing_slam_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from tests.test_dist_ba import _perturbed_problem
-from tests.torch_mp_worker import ba_worker, run_ranks
+from tests.torch_mp_worker import ba_worker, run_ranks, stacked_points
 
 torch.set_num_threads(2)
 
@@ -82,18 +84,28 @@ def test_world_of_one_equals_full_ba(rng, world_of_one):
 
 
 def test_two_gloo_processes_match_single_process(rng, tmp_path):
+    """Also the stacked solve over the two ranks (batched_distributed_full_ba
+    of the problem and a moved copy, each point shard per problem): its
+    first row equals the ranks' distributed solve of the problem alone to
+    the bit, and its second the single-process solve of the copy within
+    the same tolerances."""
     _, _, cam, prob, poses = _both(rng)
     np.savez(tmp_path / "problem.npz", cam=np.array(list(cam), np.float64),
              **{f: getattr(prob, f).numpy() for f in BAProblem._fields})
     codes = run_ranks(ba_worker, 2, str(tmp_path), timeout_s=180.0)
     assert codes == [0, 0], codes
     want = full_ba(cam, prob)
+    want_moved = full_ba(cam, prob._replace(points=stacked_points(prob.points)))
     for r in range(2):
         with np.load(tmp_path / f"ba{r}.npz") as d:
             assert bool(d["raised"]), "an odd point capacity over 2 shards did not raise"
             got = type(want)(*[d[f] for f in want._fields])
+            batched = type(want)(*[d["b_" + f] for f in want._fields])
         _assert_close(got, want)
         np.testing.assert_allclose(got.cam_t[2], poses[2][:3, 3], atol=2e-3)
+        for a, b in zip(batched, got):
+            np.testing.assert_array_equal(a[0], b)
+        _assert_close(type(want)(*[x[1] for x in batched]), want_moved)
 
 
 def test_frozen_cameras_and_points_stay(rng, world_of_one):
@@ -115,11 +127,19 @@ def test_indivisible_capacity_raises(rng):
     assert shard_problem(prob, 2, 1).points.shape[0] == 63
 
 
-def test_batched_equals_per_problem_full_ba(rng, world_of_one):
+def test_batched_equals_per_problem_full_ba(rng, world_of_one, monkeypatch):
+    """The B = 3 problems are one full_ba call over the world of one, each
+    problem equal to full_ba on it alone, to the bit."""
+    from racing_slam_tpu_torch.parallel import dist_ba
+
     probs = [_both(np.random.default_rng(s))[3] for s in (1, 2, 3)]
     cam = _both(rng)[2]
     batch = BAProblem(*[torch.stack(xs) for xs in zip(*probs)])
+    solves = []
+    monkeypatch.setattr(dist_ba, "full_ba", lambda cam, prob, *a, _f=full_ba, **kw: (
+        solves.append(prob.points.shape[:-2]) or _f(cam, prob, *a, **kw)))
     res = batched_distributed_full_ba(cam, batch, make_mesh({"seq": 1, "lm": 1}, device="cpu"))
+    assert solves == [(3,)], solves
     for b, p in enumerate(probs):
         want = full_ba(cam, p)
         for got, w in zip(res, want):

@@ -16,7 +16,8 @@ slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
 (c) Loss recovery (tests/test_multi_seq.py's scene cut): only the cut
     sequence is archived and re-bootstrapped; a cut too close to the end of
     its stream marks the sequence finished and leaves its row blank.
-(d) refine_map: each row equals full_ba + apply_refinement on that row.
+(d) refine_map: each row equals full_ba + apply_refinement on that row,
+    and a refinement is one full_ba call of all the rows.
 (e) The batched K2, K3 and K4 twins at S=3 equal three single calls
     (atol 0), and the batched frontend equals per-frame extraction.
 (f) A lockstep frame makes one host read and one K1, two K2 and two K3
@@ -25,10 +26,13 @@ slam.pipeline.slam_step_multi) on tests/test_multi_seq.py's tiny world
 (g) The keyframe commit over the rows that commit on one lockstep frame:
     with every row committing on every frame (min_commit_inliers above any
     inlier count), (a) every leaf to the bit with one batched K4 twin
-    call a lockstep frame, and (b) against JAX's step; on the hybrid
-    cadence (local_ba_window=4, window_ba_every=2), rows on different
-    commit numbers split between K4 and window_ba on one lockstep frame,
-    each row bit-equal to its own slam_step.
+    call a lockstep frame, and at local_ba_window=4 with one window_ba
+    call of all the rows a lockstep frame, after each frame, and (b)
+    against JAX's step at local_ba_window 1 and 4; on the hybrid cadence
+    (local_ba_window=4, window_ba_every=2), rows on different commit
+    numbers split between one K4 call and one window_ba call on a
+    lockstep frame, two of three rows taking the window together, each
+    row bit-equal to its own slam_step.
 (h) The pose predictions and the banded matcher in the lockstep step:
     (a) under essential_matrix_estimation, adaptive (as it comes, where
     one row takes the essential prediction on a frame and the other does
@@ -174,39 +178,107 @@ def test_multi_slam_matches_per_sequence_slam_forced_commits(world, monkeypatch)
     assert all(x.is_contiguous() for x in _named_leaves(ms.states).values())
 
 
-def test_hybrid_cadence_rows_split_between_k4_and_window_ba(world, monkeypatch):
-    """(g): local_ba_window=4 with window_ba_every=2 and forced commits,
-    the rows on commit numbers of different parity, so that on each
-    lockstep frame one row's commit takes the window (window_ba, alone)
-    and the other's the reference shape (K4, a batched call of one
-    problem), the two swapping from frame to frame; each row bit-equal to
-    slam_step on that row with its commit number, over 4 frames."""
+def _count_window_ba(monkeypatch) -> list:
+    """Records slam.pipeline's window_ba calls: the C of each stacked call
+    (the rows that take the window on a lockstep frame), 0 for a call of
+    one problem (a Slam's commit)."""
+    calls = []
+
+    def counted(cam, prob, *a, _orig=tp.window_ba, **kw):
+        calls.append(prob.points.shape[0] if prob.points.dim() == 3 else 0)
+        return _orig(cam, prob, *a, **kw)
+
+    monkeypatch.setattr(tp, "window_ba", counted)
+    return calls
+
+
+def test_window_commits_bit_equal_to_each_slam_every_frame(world, monkeypatch):
+    """(g) (a) at local_ba_window=4 with forced commits: MultiSlam and each
+    row's Slam stepped a lockstep frame at a time over 8 frames, every leaf
+    of every row bit-equal to its Slam after each; each lockstep frame
+    makes exactly one window_ba call, of both rows, and no K4 launch."""
     cam, seqs = world
-    cfg = tiny_cfg(pose_prediction="constant_velocity", local_ba_window=4, window_ba_every=2,
-                   **FORCED)
+    cfg = tiny_cfg(pose_prediction="constant_velocity", local_ba_window=4, **FORCED)
     ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, device="cpu")
     assert ms.initialize()
+    slams = [tp.Slam(cam, ArraySource(s.frames), cfg, seed=i, device="cpu")
+             for i, s in enumerate(seqs)]
+    assert all([sl.initialize() for sl in slams])
+    k4_calls = _count_k4(monkeypatch)
+    windows = _count_window_ba(monkeypatch)
+    for j in range(8):
+        del windows[:]
+        assert ms.run_batched(max_frames=1, batch=1) == 1
+        assert windows == [2], (j, windows)
+        for i, sl in enumerate(slams):
+            assert sl.run_batched(max_frames=1, batch=1) == 1
+            assert _equal_states(state_row(ms.states, i), sl.state), (j, i)
+        assert windows == [2, 0, 0], (j, windows)
+    assert k4_calls == {"batched": [], "single": 0}, k4_calls
+    for st in ms.states_per_sequence():  # every frame committed, the oldest evicted
+        assert int(st.arch_count) + int(st.num_kf) == 2 + 8
+    assert all(x.is_contiguous() for x in _named_leaves(ms.states).values())
+
+
+def _hybrid_cadence(cam, streams: list, monkeypatch, nos: list, frames: int = 4) -> None:
+    """local_ba_window=4 with window_ba_every=2 and forced commits, the rows
+    starting on commit numbers `nos`: on each lockstep frame the rows on
+    an even commit number take the window (one window_ba call of them all)
+    and the others the reference shape (one K4 call of them all); each row
+    bit-equal to slam_step on that row with its commit number. `streams`
+    are the rows' frame lists."""
+    S = len(streams)
+    cfg = tiny_cfg(pose_prediction="constant_velocity", local_ba_window=4, window_ba_every=2,
+                   **FORCED)
+    ms = MultiSlam(cam, [ArraySource(f) for f in streams], None, cfg, device="cpu")
+    assert ms.initialize()
     calls = _count_k4(monkeypatch)
-    windows = []
-    monkeypatch.setattr(tp, "window_ba", lambda *a, _w=tp.window_ba, **kw: windows.append(
-        a[1].points.shape) or _w(*a, **kw))
-    states, nos = ms.states, [2, 3]
-    rows = [tree_map(torch.clone, state_row(states, i)) for i in range(2)]
+    windows = _count_window_ba(monkeypatch)
+    states = ms.states
+    rows = [tree_map(torch.clone, state_row(states, i)) for i in range(S)]
     start = states.frame_count.tolist()
-    for j in range(4):
-        imgs = np.stack([_u8(seqs[i].frames[start[i] + j]) for i in range(2)])
-        n_single, n_windows = calls["single"], len(windows)
-        states, info = tp.slam_step_multi(states, torch.from_numpy(imgs), [True, True], None,
+    k4_rows = 0
+    for j in range(frames):
+        imgs = np.stack([_u8(streams[i][start[i] + j]) for i in range(S)])
+        n_single, n_batched = calls["single"], len(calls["batched"])
+        del windows[:]
+        states, info = tp.slam_step_multi(states, torch.from_numpy(imgs), [True] * S, None,
                                           cam=cam, cfg=cfg, frontend=ms.frontend, commit_nos=nos)
-        assert info.is_keyframe == [True, True]
-        assert calls["batched"] == [1] * (j + 1) and calls["single"] == n_single, calls
-        assert len(windows) == n_windows + 1
-        for i in range(2):
+        assert info.is_keyframe == [True] * S
+        n_window = sum(n % 2 == 0 for n in nos)
+        assert windows == ([n_window] if n_window else []), (j, windows)
+        assert calls["batched"][n_batched:] == ([S - n_window] if n_window < S else []), calls
+        assert calls["single"] == n_single, calls
+        k4_rows += S - n_window
+        for i in range(S):
             rows[i], _ = tp.slam_step(rows[i], torch.from_numpy(imgs[i]), None, cam=cam, cfg=cfg,
                                       frontend=ms.frontend, commit_no=nos[i])
             assert _equal_states(state_row(states, i), rows[i]), (j, i)
         nos = [n + 1 for n in nos]
-    assert calls["single"] == 4  # the rows' own slam_step commits
+    assert calls["single"] == k4_rows  # the rows' own slam_step commits on K4
+
+
+def test_hybrid_cadence_rows_split_between_k4_and_window_ba(world, monkeypatch):
+    """(g): the hybrid cadence (_hybrid_cadence) with the two rows on commit
+    numbers of different parity, so that on each lockstep frame one row's
+    commit takes the window (a window_ba call of one problem) and the
+    other's the reference shape (a K4 call of one problem), the two
+    swapping from frame to frame; each row bit-equal to its own slam_step,
+    over 4 frames."""
+    cam, seqs = world
+    _hybrid_cadence(cam, [s.frames for s in seqs], monkeypatch, [2, 3])
+
+
+def test_hybrid_cadence_two_rows_take_the_window_together(world, monkeypatch):
+    """(g): the hybrid cadence over three rows (the two worlds, and the
+    first from its second frame) on commit numbers 2, 3 and 4: rows 0 and
+    2 take the window on the same frame (one window_ba call of C = 2 beside
+    one K4 call of C = 1), then row 1 alone beside the other two (C = 1 and
+    C = 2), and so on over 4 frames, each row bit-equal to its own
+    slam_step."""
+    cam, seqs = world
+    _hybrid_cadence(cam, [seqs[0].frames, seqs[1].frames, seqs[0].frames[1:]], monkeypatch,
+                    [2, 3, 4])
 
 
 def test_multi_slam_matches_per_sequence_slam_constant_velocity(world):
@@ -396,15 +468,17 @@ def test_step_matches_jax_multi_sequence_step(world):
     assert commits > 0  # the commit path ran on some row
 
 
-def test_step_matches_jax_multi_sequence_step_forced_commits(world, jax_boot):
+@pytest.mark.parametrize("window", [1, 4])
+def test_step_matches_jax_multi_sequence_step_forced_commits(world, jax_boot, window):
     """(g) (b): both rows commit on each of the 6 lockstep frames (one
-    commit over the two rows each), from JAX's bootstrapped states, under
+    commit over the two rows each: K4, or one window_ba call at
+    local_ba_window=4), from JAX's bootstrapped states, under
     the one-step rule (test_step_matches_jax_multi_sequence_step_predictions
     says why: carried over six commits, one weak-depth point of row 0
     leaves the two packages' maps apart at the fifth, 138 points against
     137, and the pose 6.5e-4 rad apart)."""
     mesh, jfrontend, jstates = jax_boot
-    cfg = tiny_cfg(pose_prediction="constant_velocity", **FORCED)
+    cfg = tiny_cfg(pose_prediction="constant_velocity", local_ba_window=window, **FORCED)
     assert _against_jax_lockstep(world, mesh, jfrontend, jstates, cfg, one_step=True) == 12
 
 
@@ -440,7 +514,11 @@ def test_loss_recovery_archives_only_the_cut_sequence():
     assert int(states[1].num_kf) >= 2
 
 
-def test_refine_map_equals_full_ba_per_row(world):
+def test_refine_map_equals_full_ba_per_row(world, monkeypatch):
+    """(d): each row equals full_ba + apply_refinement on that row, to the
+    bit, and a refinement is one full_ba call of all the rows."""
+    from racing_slam_tpu_torch.parallel import dist_ba
+
     cam, seqs = world
     cfg = tiny_cfg()
     ms = MultiSlam(cam, [ArraySource(s.frames) for s in seqs], None, cfg, refine_every=1,
@@ -449,7 +527,11 @@ def test_refine_map_equals_full_ba_per_row(world):
     ms.run_batched(max_frames=3, batch=3)
     assert len(ms.refine_costs) == 1
     before = ms.states_per_sequence()
+    solves = []
+    monkeypatch.setattr(dist_ba, "full_ba", lambda cam, prob, *a, _f=dist_ba.full_ba, **kw: (
+        solves.append(prob.points.shape[:-2]) or _f(cam, prob, *a, **kw)))
     cost = ms.refine_map()
+    assert solves == [(2,)], solves
     for i, row in enumerate(before):
         res = full_ba(cam, build_global_problem(row), max_iters=4)
         want = apply_refinement(row, res)

@@ -19,15 +19,26 @@ def _join(rank: int, world: int, store: str):
     assert n == world, n
 
 
+def stacked_points(points: torch.Tensor) -> torch.Tensor:
+    """The points of ba_worker's second stacked problem: moved by 2 cm
+    along a fixed pattern."""
+    return points + 0.02 * torch.tensor([1.0, -1.0, 0.5])
+
+
 def ba_worker(rank: int, world: int, store: str, outdir: str) -> None:
     """distributed_full_ba over an {"lm": world} mesh on the problem the
-    parent wrote (problem.npz); the result to ba<rank>.npz. An odd point
-    capacity must raise before any collective."""
+    parent wrote (problem.npz), and batched_distributed_full_ba over it
+    stacked with a copy whose points are moved (stacked_points); the
+    results to ba<rank>.npz (the stacked one's fields prefixed "b_"). An
+    odd point capacity must raise before any collective."""
     import torch.distributed as dist
 
     from racing_slam_tpu_torch.ops.ba import BAProblem
     from racing_slam_tpu_torch.ops.camera import Camera
-    from racing_slam_tpu_torch.parallel.dist_ba import distributed_full_ba
+    from racing_slam_tpu_torch.parallel.dist_ba import (
+        batched_distributed_full_ba,
+        distributed_full_ba,
+    )
     from racing_slam_tpu_torch.parallel.mesh import make_mesh
 
     _join(rank, world, store)
@@ -36,6 +47,9 @@ def ba_worker(rank: int, world: int, store: str, outdir: str) -> None:
         cam = Camera(*[float(x) for x in d["cam"][:4]], int(d["cam"][4]), int(d["cam"][5]))
         prob = BAProblem(*[torch.from_numpy(d[f]) for f in BAProblem._fields])
     res = distributed_full_ba(cam, prob, mesh)
+    moved = prob._replace(points=stacked_points(prob.points))
+    batched = batched_distributed_full_ba(
+        cam, BAProblem(*[torch.stack(x) for x in zip(prob, moved)]), mesh)
     odd = prob._replace(**{f: getattr(prob, f)[1:] for f in (
         "points", "obs_cam", "obs_uv", "obs_valid", "point_free", "point_in_problem")})
     try:
@@ -44,7 +58,8 @@ def ba_worker(rank: int, world: int, store: str, outdir: str) -> None:
     except ValueError:
         raised = True
     np.savez(os.path.join(outdir, f"ba{rank}.npz"), raised=raised,
-             **{f: getattr(res, f).numpy() for f in res._fields})
+             **{f: getattr(res, f).numpy() for f in res._fields},
+             **{"b_" + f: getattr(batched, f).numpy() for f in batched._fields})
     dist.destroy_process_group()
 
 
