@@ -26,7 +26,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      to a call of the row alone; K4 batched over S=8 commit problems with
      their own data and free cameras, each bit-equal to a launch of it
      alone and held to the twin by the single K4's rule, with the number
-     of its 16-CTA clusters the card holds at once), with
+     of its 16-CTA clusters the card holds at once, at least 8), with
      device times (cuda_ms: CUDA
      events around 25 back-to-back calls queued behind a sleep kernel),
      the least time
@@ -1084,8 +1084,9 @@ def check_structure_ba_batched(dev) -> dict:
     problem bit-equal to its launch alone. Times (exit on): the batched
     launch, the 8 single launches back to back, the batched twin. Bound:
     check_structure_ba's operations summed over the problems, each at its
-    own iteration count. Printed: how many of the launch's 16-CTA clusters
-    the card holds at once (max_active_clusters); the others queue."""
+    own iteration count. How many of the launch's 16-CTA clusters the card
+    holds at once (max_active_clusters) must be at least 8: a lockstep
+    frame's commits run in one wave."""
     import torch
 
     from racing_slam_tpu_torch.ops.kernels import structure_ba as k
@@ -1116,14 +1117,15 @@ def check_structure_ba_batched(dev) -> dict:
     iters = out[:, 7].cpu().numpy().astype(int)
     P = args[2].shape[1]
     clusters = k.max_active_clusters(P, args[3].shape[2])
+    assert clusters >= MULTI_S, f"K4: the card holds {clusters} clusters, not {MULTI_S}"
     ms = cuda_ms(lambda: k.structure_ba_lm(*args, **kw))
     singles = cuda_ms(lambda: [k.structure_ba_lm(*row, **kw) for row, _, _ in data])
     plain = cuda_ms(lambda: k.structure_ba_lm_reference(*args, **kw), n=2, rounds=1, warmup=1)
     ops = sum(_k4_ops(int(it), int(d["include"].sum()), P) for it, (_, _, d) in zip(iters, data))
     log(f"K4 batched S={MULTI_S} (P={P}, free cameras {[d['free'] for _, _, d in data]}): "
         f"problems bit-equal to single launches (exit off and on), max err vs twin {err:.3e}, "
-        f"iterations {iters.tolist()}; {clusters} 16-CTA clusters co-resident on the card; "
-        f"one launch {ms:.4f} ms, {MULTI_S} single launches {singles:.4f} ms")
+        f"iterations {iters.tolist()}; {clusters} {k.CLUSTER}-CTA clusters co-resident on "
+        f"the card; one launch {ms:.4f} ms, {MULTI_S} single launches {singles:.4f} ms")
     return dict(name=f"structure_ba_lm[S={MULTI_S}]", module=k, max_abs_err=err, ms=ms,
                 plain_ms=plain, library_ms=None, singles_ms=singles, co_resident_clusters=clusters,
                 **bound(nbytes(*args) + MULTI_S * (8 + P * 3) * 4, {"f32": ops}),
@@ -1335,17 +1337,20 @@ K6_BATCHED_VALID = (0.95, 0.9, 0.8, 0.7, 0.5, 0.3, 0.1, 0.0)
 
 
 def check_attention_batched(dev) -> dict:
-    """K6 over S=8 problems in one call (three launches), LightGlue's
+    """K6 over S=8 problems in one call (two launches), LightGlue's
     attention over the 8 frame pairs of a lockstep frame: q, k, v
     [8, 2400, 4, 32], each row with its own data and valid share
     (K6_BATCHED_VALID, row 7 all masked); then S=3 at a ragged key count
     (2333). Each row must equal a call on that row alone to the bit (the
-    batched call splits the keys as one row's call does), and the batched
-    twin (row by row) by check_attention's rule, per row (5 % of that
-    row's twin output RMS). Times: the batched call, the S single calls
-    back to back, the batched twin, and torch's scaled_dot_product_attention
-    over the batch in bf16 with an additive -1e9 float mask (library_ms;
-    the port never calls it). Bound: _k6_bound, over each row's own valid
+    batched call splits the keys as one row's call does; at S=8 one CTA
+    holds all of a tile's chunks and merges them itself, at S=3 each CTA
+    runs one chunk and the combine merges them, as in a single call:
+    `attention.launch_plan`), and the batched twin (row by row) by
+    check_attention's rule, per row (5 % of that row's twin output RMS).
+    Times: the batched call, the S single calls back to back, the batched
+    twin, and torch's scaled_dot_product_attention over the batch in bf16
+    with an additive -1e9 float mask (library_ms; the port never calls
+    it). Bound: _k6_bound, over each row's own valid
     keys."""
     import torch
     import torch.nn.functional as F
@@ -1373,9 +1378,10 @@ def check_attention_batched(dev) -> dict:
             assert torch.isfinite(got[i]).all() and e <= tol, \
                 f"K6 batched [{Kq}, {Kk}] row {i}: max abs err {e} > {tol}"
             err = max(err, e)
-        log(f"K6 batched S={S} [{Kq}, {Kk}], valid shares {list(valid)}, "
-            f"{k.default_chunks(Kq, Kk, H)} key chunks a row: rows bit-equal to single calls, "
-            f"max abs err {err:.3e}")
+        plan = k.launch_plan(S, Kq, Kk, H)
+        log(f"K6 batched S={S} [{Kq}, {Kk}], valid shares {list(valid)}, {plan.chunks} key "
+            f"chunks a row, fold {plan.fold}, {plan.launches} launches: rows bit-equal to "
+            f"single calls, max abs err {err:.3e}")
         if Kk == 2400:
             args = (q, kk, v, mask)
     q, kk, v, mask = args
@@ -1537,7 +1543,7 @@ FORCED_ADAPTIVE_FRAMES = 96
 
 
 # The port's kernels by the name of their __global__ functions (K6 is
-# three launches a call).
+# three launches a call, or two when its CTAs fold: no combine).
 OUR_KERNELS = {"K1": "frontend_kernel", "K2": "guided_match_kernel", "K3": "motion_ba_kernel",
                "K4": "structure_ba_cluster", "K5": "banded_match_kernel",
                "K6 prepass": "flash_prepass", "K6 main": "flash_main",

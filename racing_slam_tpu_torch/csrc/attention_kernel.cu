@@ -12,46 +12,61 @@
 // Layout: q [S, Kq, H, dh], k and v [S, Kk, H, dh] float32, mask [S, Kk]
 // uint8, out [S, Kq, H, dh] float32; dh in {16, 32, 64}. S independent
 // problems of one shape (LightGlue over the S frame pairs of a lockstep
-// frame; S = 1 for one pair) share each of the three launches: the
-// problem is a coordinate of every grid (blockIdx.y of the pre-pass and
-// the combine, blockIdx.z / chunks of the main kernel), and each problem
-// has a workspace of its own. A problem's CTAs do exactly the work, in
-// the same order, that they do when it runs alone with the same `chunks`,
-// so each problem's output equals the single launch's to the bit.
+// frame; S = 1 for one pair) share each launch: the problem is a
+// coordinate of every grid (blockIdx.y of the pre-pass and the combine,
+// blockIdx.z of the main kernel, over `chunks` unless it folds), and each
+// problem has a workspace of its own. Each chunk of a problem is
+// computed, and the chunks are merged, by the same operations in the same
+// order however many problems run and whether or not the CTAs fold, so
+// each problem's output equals the single launch's to the bit.
 //
 // What bounds it on an H100 at the main path's [2400, 4, 32]: the exp of
 // every logit, 23 M per call on the special-function units (~5.5 us),
 // above the 2.95 GFLOP of the two products on the tensor cores (~3 us)
 // and the 4.9 MB of f32 operands (~1.5 us). At that shape there are only
 // 38 x 4 = 152 tiles of 64 queries for 132 SMs, so latency, not a unit,
-// sets the pace unless the keys are split too. Three launches a call:
+// sets the pace unless the keys are split too. Two or three launches a
+// call:
 //
 // 1. flash_prepass: q, k and v rounded to bf16 once, head-major, in 64-row
 //    tiles laid out exactly as the main kernel's shared memory wants them
 //    (q and k tiles 64 x dh, v transposed to dh x 64 keys, each row
 //    swizzled as the wgmma descriptors below say), k and v padded with
-//    zeros to `chunks` x `tiles_per_chunk` key tiles; the key mask as an
-//    additive float32 row: 0, -1e9 for a masked key, -2e9 for padding.
-// 2. flash_main: one CTA per (64-query tile, head, key chunk): one
-//    producer warp keeps a ring of STAGES key tiles (k, v^T, mask row)
-//    in flight with bulk asynchronous copies (cp.async.bulk, the TMA's
-//    contiguous form) completing on mbarriers; one consumer warpgroup
-//    runs S = Q K^T with wgmma m64n64k16 (both operands in shared memory,
-//    bf16 in, f32 accumulate), masks and scales each logit with one FFMA
-//    into log2 units (x = s * scale * log2 e, or the mask row's -1e9 /
-//    -2e9), updates the running max and denominator, and feeds exp2(x - m)
-//    packed to bf16 from the S accumulators as wgmma's register A operand
-//    into O += P V (m64n{dh}k16). It writes the chunk's unnormalised O and
-//    its (m, l) to a partial buffer; a chunk that holds only padding ends
-//    with m = -1e9, l = 0 and O = 0.
-// 3. flash_combine: per (query, head) the chunks' (m, l, O) merged in
-//    chunk order, O / l written in the [Kq, H, dh] layout.
+//    zeros to whole key tiles; the key mask as a row of (multiplier,
+//    addend) pairs: (scale * log2 e, 0) for a valid key, (0, -1e9) for a
+//    masked one, (0, -2e9) for padding.
+// 2. flash_main: one CTA per (64-query tile, head, key chunk), or per
+//    (64-query tile, head) running every chunk when it folds; one
+//    warpgroup, five CTAs an SM: thread 0 keeps a ring of STAGES key tiles
+//    (k, v^T, mask row) in flight with bulk asynchronous copies
+//    (cp.async.bulk, the TMA's contiguous form) completing on mbarriers,
+//    across the CTA's chunks, refilling a stage once every warp has
+//    released it; the warpgroup runs S = Q K^T with wgmma m64n64k16
+//    (both operands in shared memory, bf16 in, f32 accumulate), masks and
+//    scales each logit with one FFMA of its key's pair into log2 units,
+//    updates the running max and denominator, rescales O only where a
+//    row's max moved, and feeds exp2(x - m) packed to bf16 from the S
+//    accumulators as wgmma's register A operand into O += P V
+//    (m64n{dh}k16), each chunk from m = -1e9, l = 0, O = 0. It writes each
+//    chunk's unnormalised O and its (m, l) to a partial buffer; a chunk
+//    past the last key ends with m = -1e9, l = 0 and O = 0. A folding CTA
+//    merges its chunks itself as the combine does, its last chunk from
+//    registers.
+// 3. flash_combine (unless the CTAs fold): per (query, head) the chunks'
+//    (m, l, O) merged in chunk order, O / l written in the [Kq, H, dh]
+//    layout.
 //
-// The split is the wrapper's choice (ops/kernels/attention.py): enough
-// chunks that every SM holds several CTAs at once for ONE problem, the
-// same for S problems, since the split sets the order of the combine. A consumer on ldmatrix
-// + mma.sync over the same ring, tiles and split measured slower than
-// wgmma at dh = 32 (PERF.md) and was not kept.
+// The split and the CTAs are the wrapper's choice (ops/kernels/attention.py
+// launch_plan): enough chunks that every SM holds several CTAs at once for
+// ONE problem, the same chunks for S problems, since they set the order of
+// the combine; where the S problems' (query tile, head) pairs fill most
+// of their last wave on the card, the CTAs fold: one a pair runs all of
+// its chunks (two launches a call). Where the time goes (PERF.md; tools/k6_phases.py): the
+// softmax, ~1300 of ~1800 cycles a tile with five CTAs on an SM; key tiles
+// shared by two query tiles and the bf16 packing off the conversion unit
+// measured no faster. A consumer on ldmatrix + mma.sync over the same
+// ring, tiles and split measured slower than wgmma at dh = 32 (PERF.md)
+// and was not kept.
 #include <cuda_bf16.h>
 
 #include <algorithm>
@@ -63,8 +78,8 @@ namespace {
 constexpr int TQ = 64;  // queries per CTA (one consumer warpgroup)
 constexpr int TK = 64;  // keys per tile
 constexpr int STAGES = 3;
-constexpr int CONSUMER_THREADS = 128;
-constexpr int THREADS = CONSUMER_THREADS + 32;  // + the producer warp
+constexpr int THREADS = 128;  // one warpgroup; its thread 0 also issues the copies
+constexpr int MIN_CTAS = 5;  // an SM holds 5 CTAs: 4 warps x 96 registers
 constexpr float NEG = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -227,23 +242,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Sizes of one problem's buffers, in the order its workspace holds them
 // (a multiple of 1024 bytes, so that every problem's tiles stay aligned).
+// The keys split into `chunks` runs of `tpc` tiles; the tiles past the
+// last key (all padding) are neither written nor read.
 struct Plan {
-  int qt, kt, tpc, chunks;
-  size_t qb, kb, vt, madd, o_part, ml;  // bytes
+  int qt, nt, tpc, chunks;
+  size_t qb, kb, vt, mrow, o_part, ml;  // bytes
   __host__ Plan(int Kq, int Kk, int H, int dh, int n_chunks) {
     qt = (Kq + TQ - 1) / TQ;
-    const int n_tiles = (Kk + TK - 1) / TK;
-    tpc = (n_tiles + n_chunks - 1) / n_chunks;
+    nt = (Kk + TK - 1) / TK;
+    tpc = (nt + n_chunks - 1) / n_chunks;
     chunks = n_chunks;
-    kt = n_chunks * tpc;
     qb = round_up((size_t)H * qt * TQ * dh * 2, 1024);
-    kb = round_up((size_t)H * kt * TK * dh * 2, 1024);
+    kb = round_up((size_t)H * nt * TK * dh * 2, 1024);
     vt = kb;
-    madd = round_up((size_t)kt * TK * 4, 1024);
+    mrow = round_up((size_t)nt * TK * 8, 1024);
     o_part = round_up((size_t)n_chunks * H * qt * TQ * dh * 4, 1024);
     ml = round_up((size_t)n_chunks * H * qt * TQ * 8, 1024);
   }
-  size_t total() const { return qb + kb + vt + madd + o_part + ml; }
+  size_t total() const { return qb + kb + vt + mrow + o_part + ml; }
 };
 
 // 1. bf16 tiles of q, k and v^T in the main kernel's shared-memory layout,
@@ -253,8 +269,8 @@ __global__ void __launch_bounds__(256)
 flash_prepass(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const uint8_t* __restrict__ mask_k,
               uint8_t* __restrict__ qb, uint8_t* __restrict__ kb, uint8_t* __restrict__ vt,
-              float* __restrict__ madd, int Kq, int Kk, int H, int qt, int kt,
-              size_t ws_stride) {
+              float2* __restrict__ mrow, int Kq, int Kk, int H, int qt, int nt,
+              size_t ws_stride, float c) {
   constexpr int W = DH * 2;  // bytes of a q / k tile row
   constexpr int CH = DH / 8;  // 16-byte chunks of a row
   const int seq = blockIdx.y;  // the problem; its operands and workspace
@@ -265,11 +281,11 @@ flash_prepass(const float* __restrict__ q, const float* __restrict__ k,
   qb += seq * ws_stride;
   kb += seq * ws_stride;
   vt += seq * ws_stride;
-  madd = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(madd) + seq * ws_stride);
+  mrow = reinterpret_cast<float2*>(reinterpret_cast<uint8_t*>(mrow) + seq * ws_stride);
   const long long nq = (long long)qt * TQ * H * CH;
-  const long long nk = (long long)kt * TK * H * CH;
-  const long long nv = (long long)kt * (TK / 8) * H * DH;
-  const long long nm = (long long)kt * TK;
+  const long long nk = (long long)nt * TK * H * CH;
+  const long long nv = (long long)nt * (TK / 8) * H * DH;
+  const long long nm = (long long)nt * TK;
   const size_t stride = (size_t)H * DH;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < nq + nk + nv + nm;
        i += (long long)gridDim.x * blockDim.x) {
@@ -288,7 +304,7 @@ flash_prepass(const float* __restrict__ q, const float* __restrict__ k,
       }
       const uint4 w = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
                                  pack_bf16(b.z, b.w));
-      const int tiles = is_q ? qt : kt;
+      const int tiles = is_q ? qt : nt;
       uint8_t* tile = (is_q ? qb : kb) + ((size_t)h * tiles + row / TQ) * TQ * W;
       *reinterpret_cast<uint4*>(tile + swizzle((row % TQ) * W + 16 * c, W)) = w;
     } else if (i < nq + nk + nv) {  // v^T: dh x 64-key tiles, 128-byte rows
@@ -304,26 +320,35 @@ flash_prepass(const float* __restrict__ q, const float* __restrict__ k,
       }
       const uint4 w = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
                                  pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
-      uint8_t* tile = vt + ((size_t)h * kt + kg / (TK / 8)) * DH * TK * 2;
+      uint8_t* tile = vt + ((size_t)h * nt + kg / (TK / 8)) * DH * TK * 2;
       *reinterpret_cast<uint4*>(tile + swizzle(d * TK * 2 + 16 * (kg % (TK / 8)), TK * 2)) = w;
     } else {
       const int key = (int)(i - nq - nk - nv);
-      madd[key] = key < Kk ? (mask_k[key] ? 0.f : NEG) : 2.f * NEG;
+      mrow[key] = key < Kk ? (mask_k[key] ? make_float2(c, 0.f) : make_float2(0.f, NEG))
+                           : make_float2(0.f, 2.f * NEG);
     }
   }
 }
 
-// 2. One (64-query tile, head, key chunk): the producer warp streams the
-// chunk's key tiles through the ring; the consumer warpgroup does the
-// online softmax, both products on wgmma.
+// 2. One (64-query tile, head) and one of its key chunks, or all of them
+// when it folds: one warpgroup does the online softmax of each chunk from m = -1e9, l = 0,
+// O = 0, both products on wgmma, and finishes each chunk exactly as a CTA
+// of one chunk does, writing its unnormalised (O, m, l) to the partials.
+// Its thread 0 keeps the CTA's key tiles flowing through the ring without
+// a break between chunks: it refills a stage once the four warps have
+// released it (no producer warp, whose registers would leave room for four
+// CTAs an SM, not five). Folded, it then merges the chunks as
+// flash_combine does,
+// the same operations in the same order, the last chunk from registers and
+// the others from the partials each thread wrote, and writes the output.
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 flash_main(const uint8_t* __restrict__ qb, const uint8_t* __restrict__ kb,
-           const uint8_t* __restrict__ vt, const float* __restrict__ madd,
-           float* __restrict__ o_part, float2* __restrict__ ml_part, int qt, int kt, int tpc,
-           int H, int chunks, size_t ws_stride, float c) {
+           const uint8_t* __restrict__ vt, const float2* __restrict__ mrow_g,
+           float* __restrict__ o_part, float2* __restrict__ ml_part, float* __restrict__ out,
+           int Kq, int qt, int nt, int tpc, int H, int chunks, int fold, size_t ws_stride) {
   constexpr int W = DH * 2;
-  constexpr uint32_t Q_BYTES = TQ * W, K_BYTES = TK * W, V_BYTES = DH * TK * 2, M_BYTES = TK * 4;
+  constexpr uint32_t Q_BYTES = TQ * W, K_BYTES = TK * W, V_BYTES = DH * TK * 2, M_BYTES = TK * 8;
   constexpr uint32_t Q_OFF = 0;
   constexpr uint32_t K_OFF = round_up(Q_BYTES, 1024);
   constexpr uint32_t V_OFF = K_OFF + STAGES * round_up(K_BYTES, 1024);
@@ -338,146 +363,212 @@ flash_main(const uint8_t* __restrict__ qb, const uint8_t* __restrict__ kb,
   const uint32_t empty = full + 8 * STAGES;           // STAGES barriers
   const uint32_t q_full = empty + 8 * STAGES;
   const int qtile = blockIdx.x, h = blockIdx.y;
-  const int seq = blockIdx.z / chunks, chunk = blockIdx.z % chunks;
+  const int seq = fold ? blockIdx.z : blockIdx.z / chunks;
+  const int c0 = fold ? 0 : blockIdx.z % chunks, c1 = fold ? chunks : c0 + 1;
+  // The CTA's key tiles, those past the last key left out.
+  const int t0 = min(c0 * tpc, nt), t1 = min(c1 * tpc, nt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   qb += seq * ws_stride;
   kb += seq * ws_stride;
   vt += seq * ws_stride;
-  madd = reinterpret_cast<const float*>(reinterpret_cast<const uint8_t*>(madd) + seq * ws_stride);
+  mrow_g = reinterpret_cast<const float2*>(reinterpret_cast<const uint8_t*>(mrow_g) +
+                                           seq * ws_stride);
   o_part = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(o_part) + seq * ws_stride);
   ml_part = reinterpret_cast<float2*>(reinterpret_cast<uint8_t*>(ml_part) + seq * ws_stride);
+  out += (size_t)seq * Kq * H * DH;
 
+  auto load_tile = [&](int t, int s) {
+    mbar_expect_tx(full + 8 * s, K_BYTES + V_BYTES + M_BYTES);
+    const size_t kt = (size_t)h * nt + t;
+    bulk_load(base + K_OFF + s * round_up(K_BYTES, 1024), kb + kt * K_BYTES, K_BYTES,
+              full + 8 * s);
+    bulk_load(base + V_OFF + s * round_up(V_BYTES, 1024), vt + kt * V_BYTES, V_BYTES,
+              full + 8 * s);
+    bulk_load(base + M_OFF + s * M_BYTES, mrow_g + (size_t)t * TK, M_BYTES, full + 8 * s);
+  };
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMER_THREADS / 32);
+      mbar_init(empty + 8 * s, THREADS / 32);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, Q_BYTES);
+    bulk_load(base + Q_OFF, qb + ((size_t)h * qt + qtile) * Q_BYTES, Q_BYTES, q_full);
+    for (int t = t0; t < min(t1, t0 + STAGES); ++t) load_tile(t, t - t0);
   }
   __syncthreads();
 
-  if (warp == CONSUMER_THREADS / 32) {  // producer
-    if (lane == 0) {
-      mbar_expect_tx(q_full, Q_BYTES);
-      bulk_load(base + Q_OFF, qb + ((size_t)h * qt + qtile) * Q_BYTES, Q_BYTES, q_full);
-      for (int i = 0; i < tpc; ++i) {
-        const int s = i % STAGES;
-        mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, K_BYTES + V_BYTES + M_BYTES);
-        const size_t t = (size_t)h * kt + chunk * tpc + i;
-        bulk_load(base + K_OFF + s * round_up(K_BYTES, 1024), kb + t * K_BYTES, K_BYTES,
-                  full + 8 * s);
-        bulk_load(base + V_OFF + s * round_up(V_BYTES, 1024), vt + t * V_BYTES, V_BYTES,
-                  full + 8 * s);
-        bulk_load(base + M_OFF + s * M_BYTES, madd + (size_t)(chunk * tpc + i) * TK, M_BYTES,
-                  full + 8 * s);
-      }
-    }
-    return;
-  }
-
   const int g = lane >> 2, tg = lane & 3;  // accumulator row group, column pair
   const uint64_t dq = make_desc(base + Q_OFF, W);
-  float m_run[2] = {NEG, NEG};  // rows g and g + 8 of this warp, log2 units
-  float l_run[2] = {0.f, 0.f};
+  float m_run[2], l_run[2];  // rows g and g + 8 of this warp, log2 units
   float o[DH / 2];
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
   mbar_wait(q_full, 0);
 
-  for (int i = 0; i < tpc; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(full + 8 * s, (i / STAGES) & 1);
-    const uint64_t dk = make_desc(base + K_OFF + s * round_up(K_BYTES, 1024), W);
-    const uint64_t dv = make_desc(base + V_OFF + s * round_up(V_BYTES, 1024), TK * 2);
-    const float* mrow = reinterpret_cast<const float*>(smem + M_OFF + s * M_BYTES);
-
-    // S = Q K^T (64 x 64), k-steps of 16 along dh (32 bytes = 2 descriptor units).
-    float sc[32];
-    wgmma_fence();
+  for (int ch = c0; ch < c1; ++ch) {
+    m_run[0] = m_run[1] = NEG;
+    l_run[0] = l_run[1] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) wgmma_ss_n64(sc, dq + 2 * ks, dk + 2 * ks, ks > 0);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(sc);
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    const int t_end = min((ch + 1) * tpc, nt);
+    for (int t = min(ch * tpc, nt); t < t_end; ++t) {
+      const int i = t - t0, s = i % STAGES;
+      mbar_wait(full + 8 * s, (i / STAGES) & 1);
+      const uint64_t dk = make_desc(base + K_OFF + s * round_up(K_BYTES, 1024), W);
+      const uint64_t dv = make_desc(base + V_OFF + s * round_up(V_BYTES, 1024), TK * 2);
+      const float4* mrow = reinterpret_cast<const float4*>(smem + M_OFF + s * M_BYTES);
 
-    // x = s * scale * log2 e for a valid key, the mask row's value
-    // otherwise: one FFMA; then the tile's row maxima.
-    float mx[2] = {NEG, NEG};
+      // S = Q K^T (64 x 64), k-steps of 16 along dh (32 bytes = 2 descriptor units).
+      float sc[32];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 mm = *reinterpret_cast<const float2*>(mrow + 8 * j + 2 * tg);
-      const float c0 = mm.x == 0.f ? c : 0.f, c1 = mm.y == 0.f ? c : 0.f;
-      sc[4 * j + 0] = fmaf(sc[4 * j + 0], c0, mm.x);
-      sc[4 * j + 1] = fmaf(sc[4 * j + 1], c1, mm.y);
-      sc[4 * j + 2] = fmaf(sc[4 * j + 2], c0, mm.x);
-      sc[4 * j + 3] = fmaf(sc[4 * j + 3], c1, mm.y);
-      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      for (int ks = 0; ks < DH / 16; ++ks) wgmma_ss_n64(sc, dq + 2 * ks, dk + 2 * ks, ks > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(sc);
+
+      // x = s * scale * log2 e for a valid key, the mask row's value
+      // otherwise: one FFMA with the key's (multiplier, addend) pair, (scale
+      // * log2 e, 0) or (0, -1e9 / -2e9); then the tile's row maxima.
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 mm = mrow[4 * j + tg];  // keys 8j + 2tg and 8j + 2tg + 1
+        sc[4 * j + 0] = fmaf(sc[4 * j + 0], mm.x, mm.y);
+        sc[4 * j + 1] = fmaf(sc[4 * j + 1], mm.z, mm.w);
+        sc[4 * j + 2] = fmaf(sc[4 * j + 2], mm.x, mm.y);
+        sc[4 * j + 3] = fmaf(sc[4 * j + 3], mm.z, mm.w);
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = ex2(m_run[r] - m_new);
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sc[e] = ex2(sc[e] - m_run[(e >> 1) & 1]);
+        rsum[(e >> 1) & 1] += sc[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+        l_run[r] = l_run[r] * alpha[r] + rsum[r];
+      }
+      // Rescale O unless no row of the warp moved its max (O * 1 = O).
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          o[4 * j + 0] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+      }
+
+      // O += P V: key blocks (2kk, 2kk + 1) of S are the A fragment of
+      // k-step kk; v^T rows are 128 bytes, a k-step is 32 of them.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_pv<DH>(o, pa[kk], dv + 2 * kk);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      if (threadIdx.x == 0 && t + STAGES < t1) {
+        mbar_wait(empty + 8 * s, (i / STAGES) & 1);
+        load_tile(t + STAGES, s);
+      }
+      __syncwarp();
     }
-    float alpha[2], rsum[2] = {0.f, 0.f};
+
+    // This chunk's unnormalised partials (a folding CTA keeps its last
+    // chunk in registers).
+    if (fold && ch + 1 == c1) break;
+    const size_t row0 = ((size_t)ch * H + h) * qt * TQ + qtile * TQ + warp * 16 + g;
+    const size_t row1 = row0 + 8;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int col = 8 * j + 2 * tg;
+      *reinterpret_cast<float2*>(o_part + row0 * DH + col) = make_float2(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<float2*>(o_part + row1 * DH + col) =
+          make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    if (tg == 0) {
+      ml_part[row0] = make_float2(m_run[0], l_run[0]);
+      ml_part[row1] = make_float2(m_run[1], l_run[1]);
+    }
+  }
+  if (!fold) return;
+
+  // flash_combine's merge of chunks 0 .. chunks - 1 for rows g and g + 8:
+  // the largest m, then l and O summed in chunk order, O / l. Each thread
+  // reads back the O it wrote, and (m, l) from lane tg = 0 of its quad.
+  __syncwarp();
+  const size_t plane = (size_t)H * qt * TQ;
+  const size_t row0 = (size_t)h * qt * TQ + qtile * TQ + warp * 16 + g;
+  const size_t rows[2] = {row0, row0 + 8};
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, w[2];
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int ch = 0; ch + 1 < chunks; ++ch)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], ml_part[ch * plane + rows[r]].x);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], m_run[r]);
+  for (int ch = 0; ch + 1 < chunks; ++ch) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = ex2(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      sc[e] = ex2(sc[e] - m_run[(e >> 1) & 1]);
-      rsum[(e >> 1) & 1] += sc[e];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + rsum[r];
+      const float2 mlc = ml_part[ch * plane + rows[r]];
+      w[r] = ex2(mlc.x - m[r]);
+      l[r] = fmaf(w[r], mlc.y, l[r]);
     }
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
-      o[4 * j + 0] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
-    }
-
-    // O += P V: key blocks (2kk, 2kk + 1) of S are the A fragment of
-    // k-step kk; v^T rows are 128 bytes, a k-step is 32 of them.
-    uint32_t pa[4][4];
+      const int col = 8 * j + 2 * tg;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      for (int r = 0; r < 2; ++r) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(o_part + (ch * plane + rows[r]) * DH + col);
+        acc[4 * j + 2 * r] = fmaf(w[r], x.x, acc[4 * j + 2 * r]);
+        acc[4 * j + 2 * r + 1] = fmaf(w[r], x.y, acc[4 * j + 2 * r + 1]);
+      }
     }
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_pv<DH>(o, pa[kk], dv + 2 * kk);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(o);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-
-  // Unnormalised partials of this chunk.
-  const size_t row0 = ((size_t)chunk * H + h) * qt * TQ + qtile * TQ + warp * 16 + g;
-  const size_t row1 = row0 + 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    w[r] = ex2(m_run[r] - m[r]);
+    l[r] = fmaf(w[r], l_run[r], l[r]);
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = fmaf(w[(i >> 1) & 1], o[i], acc[i]);
+  const int q0 = qtile * TQ + warp * 16 + g, q1 = q0 + 8;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
     const int col = 8 * j + 2 * tg;
-    *reinterpret_cast<float2*>(o_part + row0 * DH + col) = make_float2(o[4 * j], o[4 * j + 1]);
-    *reinterpret_cast<float2*>(o_part + row1 * DH + col) =
-        make_float2(o[4 * j + 2], o[4 * j + 3]);
-  }
-  if (tg == 0) {
-    ml_part[row0] = make_float2(m_run[0], l_run[0]);
-    ml_part[row1] = make_float2(m_run[1], l_run[1]);
+    if (q0 < Kq)
+      *reinterpret_cast<float2*>(out + ((size_t)q0 * H + h) * DH + col) =
+          make_float2(acc[4 * j] / l[0], acc[4 * j + 1] / l[0]);
+    if (q1 < Kq)
+      *reinterpret_cast<float2*>(out + ((size_t)q1 * H + h) * DH + col) =
+          make_float2(acc[4 * j + 2] / l[1], acc[4 * j + 3] / l[1]);
   }
 }
 
@@ -508,11 +599,11 @@ flash_combine(const float* __restrict__ o_part, const float2* __restrict__ ml_pa
     const float2 ml = ml_part[s * plane + row];
     const float w = ex2(ml.x - m);
     const float4 x = *reinterpret_cast<const float4*>(o_part + (s * plane + row) * DH + 4 * c4);
-    l += w * ml.y;
-    acc.x += w * x.x;
-    acc.y += w * x.y;
-    acc.z += w * x.z;
-    acc.w += w * x.w;
+    l = fmaf(w, ml.y, l);
+    acc.x = fmaf(w, x.x, acc.x);
+    acc.y = fmaf(w, x.y, acc.y);
+    acc.z = fmaf(w, x.z, acc.z);
+    acc.w = fmaf(w, x.w, acc.w);
   }
   *reinterpret_cast<float4*>(out + ((size_t)qi * H + h) * DH + 4 * c4) =
       make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
@@ -521,41 +612,43 @@ flash_combine(const float* __restrict__ o_part, const float2* __restrict__ ml_pa
 template <int DH>
 constexpr uint32_t main_smem_bytes() {
   return round_up(TQ * DH * 2, 1024) + STAGES * round_up(TK * DH * 2, 1024) +
-         STAGES * round_up(DH * TK * 2, 1024) + STAGES * TK * 4 + 8 * (2 * STAGES + 1) + 1024;
+         STAGES * round_up(DH * TK * 2, 1024) + STAGES * TK * 8 + 8 * (2 * STAGES + 1) + 1024;
 }
 
 template <int DH>
 int launch(const float* q, const float* k, const float* v, const uint8_t* mask_k, float* out,
-           uint8_t* ws, int S, int Kq, int Kk, int H, int chunks, float scale,
-           cudaStream_t stream) {
+           uint8_t* ws, int S, int Kq, int Kk, int H, int chunks, int fold,
+           float scale, cudaStream_t stream) {
   const Plan pl(Kq, Kk, H, DH, chunks);
   const size_t ws_stride = pl.total();  // one problem's workspace
   uint8_t* qb = ws;
   uint8_t* kb = qb + pl.qb;
   uint8_t* vt = kb + pl.kb;
-  float* madd = reinterpret_cast<float*>(vt + pl.vt);
-  float* o_part = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(madd) + pl.madd);
+  float2* mrow = reinterpret_cast<float2*>(vt + pl.vt);
+  float* o_part = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(mrow) + pl.mrow);
   float2* ml = reinterpret_cast<float2*>(reinterpret_cast<uint8_t*>(o_part) + pl.o_part);
   constexpr uint32_t smem = main_smem_bytes<DH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_main<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const long long jobs = (long long)pl.qt * TQ * H * (DH / 8) +
-                         2LL * pl.kt * TK * H * (DH / 8) + (long long)pl.kt * TK;
+                         2LL * pl.nt * TK * H * (DH / 8) + (long long)pl.nt * TK;
   const int pre_blocks = (int)std::min<long long>((jobs + 255) / 256, std::max(4096 / S, 1));
-  flash_prepass<DH><<<dim3(pre_blocks, S), 256, 0, stream>>>(q, k, v, mask_k, qb, kb, vt, madd,
-                                                             Kq, Kk, H, pl.qt, pl.kt, ws_stride);
-  flash_main<DH><<<dim3(pl.qt, H, S * chunks), THREADS, smem, stream>>>(
-      qb, kb, vt, madd, o_part, ml, pl.qt, pl.kt, pl.tpc, H, chunks, ws_stride, scale * LOG2E);
-  const long long n = (long long)Kq * H * (DH / 4);
-  flash_combine<DH><<<dim3((unsigned)((n + 255) / 256), S), 256, 0, stream>>>(
-      o_part, ml, out, Kq, H, pl.qt, chunks, ws_stride);
+  flash_prepass<DH><<<dim3(pre_blocks, S), 256, 0, stream>>>(
+      q, k, v, mask_k, qb, kb, vt, mrow, Kq, Kk, H, pl.qt, pl.nt, ws_stride, scale * LOG2E);
+  flash_main<DH><<<dim3(pl.qt, H, fold ? S : S * chunks), THREADS, smem, stream>>>(
+      qb, kb, vt, mrow, o_part, ml, out, Kq, pl.qt, pl.nt, pl.tpc, H, chunks, fold, ws_stride);
+  if (!fold) {
+    const long long n = (long long)Kq * H * (DH / 4);
+    flash_combine<DH><<<dim3((unsigned)((n + 255) / 256), S), 256, 0, stream>>>(
+        o_part, ml, out, Kq, H, pl.qt, chunks, ws_stride);
+  }
   return (int)cudaGetLastError();
 }
 
 bool valid_args(int S, int Kq, int Kk, int H, int dh, int chunks) {
   return S >= 1 && S <= 65535 && Kq >= 1 && Kk >= 1 && H >= 1 && H <= 65535 && chunks >= 1 &&
-         (long long)S * chunks <= 65535 && (dh == 16 || dh == 32 || dh == 64);
+         (dh == 16 || dh == 32 || dh == 64);
 }
 
 }  // namespace
@@ -567,16 +660,23 @@ SLAM_API size_t slam_flash_mha_seq_workspace_bytes(int S, int Kq, int Kk, int H,
   return valid_args(S, Kq, Kk, H, dh, chunks) ? S * Plan(Kq, Kk, H, dh, chunks).total() : 0;
 }
 
+// `fold` = 0: a CTA a (query tile, head, chunk), merged by the combine;
+// `fold` = 1: a CTA a (query tile, head) runs every chunk and merges them,
+// and no combine is launched.
 SLAM_API int slam_flash_mha_seq(const float* q, const float* k, const float* v,
                                 const uint8_t* mask_k, float* out, void* workspace, int S, int Kq,
-                                int Kk, int H, int dh, int chunks, float scale,
+                                int Kk, int H, int dh, int chunks, int fold, float scale,
                                 cudaStream_t stream) {
-  if (!valid_args(S, Kq, Kk, H, dh, chunks) || workspace == nullptr)
+  if (!valid_args(S, Kq, Kk, H, dh, chunks) || (!fold && (long long)S * chunks > 65535) ||
+      workspace == nullptr)
     return (int)cudaErrorInvalidValue;
   uint8_t* ws = static_cast<uint8_t*>(workspace);
   switch (dh) {
-    case 16: return launch<16>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
-    case 32: return launch<32>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
-    default: return launch<64>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, scale, stream);
+    case 16:
+      return launch<16>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, fold, scale, stream);
+    case 32:
+      return launch<32>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, fold, scale, stream);
+    default:
+      return launch<64>(q, k, v, mask_k, out, ws, S, Kq, Kk, H, chunks, fold, scale, stream);
   }
 }

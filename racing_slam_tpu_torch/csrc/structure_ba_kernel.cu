@@ -19,10 +19,13 @@
 // must wait for. The design (its times in PERF.md, from
 // tools/kernel_ab.py):
 //
-// - One cluster of C CTAs (16 by default, non-portable; 8 is accepted) of
-//   256 threads, launched with cudaLaunchKernelEx. CTA r owns the points
-//   [r * share, (r + 1) * share), share = ceil(P / C), one thread a point
-//   at a time.
+// - One cluster of C = 16 CTAs (non-portable) of 160 threads, launched
+//   with cudaLaunchKernelEx. CTA r owns the points [r * share, (r + 1) *
+//   share), share = ceil(P / C), one thread a point at a time: one point a
+//   thread up to 2560 points (the commit's 2432). __launch_bounds__ keeps
+//   the CTA to two an SM (168 registers a thread with CUDA 12.8), so the
+//   H100 holds 14 of these clusters at once and the 8 commits of a
+//   lockstep frame run in one wave (a 256-thread CTA took a whole SM: 7).
 // - Each CTA keeps in shared memory the frozen cameras' rotation table
 //   (F <= 64), its points' state (X, trial X, Y, Hpp^-1, g_p: 36 floats a
 //   point, component-major so that neighbouring threads hit neighbouring
@@ -30,10 +33,10 @@
 //   an excluded observation) and a float2 (uv on the normalised plane,
 //   divided by fx once), for the whole solve. That
 //   is 36 * 4 + 9 * O + 1 bytes a point: at O = 8 the whole state stays in
-//   shared memory up to share = 1024, i.e. P <= 16384 at C = 16 and
-//   P <= 8192 at C = 8. Above that, the same layout lives in the global
-//   `scratch` (this CTA's slice, read and written only by this CTA; the
-//   code is the same, through generic pointers).
+//   shared memory up to share = 1024, i.e. P <= 16384. Above that, the
+//   same layout lives in the global `scratch` (this CTA's slice, read and
+//   written only by this CTA; the code is the same, through generic
+//   pointers).
 // - Reductions without atomics or a grid barrier: each CTA sums its
 //   partials over its threads (the 54 of the reduced system by a
 //   reduce-scatter across each warp's lanes, 62 shuffles a thread in
@@ -55,9 +58,10 @@
 //   problem's operands at fixed strides, keeps its own slice of `scratch`,
 //   sums in the single launch's rank order and takes its own accept and
 //   exit decisions, so each problem gives the bits of its launch alone;
-//   clusters never wait on each other. The card holds only so many
-//   16-CTA clusters at once (slam_structure_ba_max_clusters); the rest
-//   queue behind them.
+//   clusters never wait on each other. Every launch takes the same
+//   cluster, whatever S is. The card holds only so many clusters at once
+//   (slam_structure_ba_max_clusters: 14 on the H100); the rest queue
+//   behind them.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -66,7 +70,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 160;
 constexpr int WARPS = THREADS / 32;
 constexpr int F_MAX = 64;
 constexpr int C_MAX = 16;
@@ -184,7 +188,7 @@ __device__ __forceinline__ float rank_sum(const float* slots0, int C, int stride
   return s;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 structure_ba_cluster(const float* __restrict__ cam_rvec, const float* __restrict__ cam_t,
                      const long long* __restrict__ free_slot, const float* __restrict__ points,
                      Problem pb, float* __restrict__ out, float* __restrict__ points_out,
@@ -481,7 +485,7 @@ cudaLaunchConfig_t launch_config(int S, int P, int O, int cluster, cudaStream_t 
 // Bytes of global scratch one problem needs when its points' state does
 // not fit in shared memory (0 when it does); S problems take S times this.
 SLAM_API size_t slam_structure_ba_scratch_bytes(int P, int O, int cluster) {
-  if (cluster < 1 || O < 1 || P < 0) return 0;
+  if (cluster != C_MAX || O < 1 || P < 0) return 0;
   const int share = (P + cluster - 1) / cluster;
   const size_t dyn = FIXED_FLOATS * 4 + point_bytes(share, O);
   return dyn <= SMEM_MAX ? 0 : (size_t)cluster * point_bytes(share, O);
@@ -490,7 +494,7 @@ SLAM_API size_t slam_structure_ba_scratch_bytes(int P, int O, int cluster) {
 // How many clusters of the launch for P points the card holds at once
 // (cudaOccupancyMaxActiveClusters); a negative CUDA error code on failure.
 SLAM_API int slam_structure_ba_max_clusters(int P, int O, int cluster) {
-  if (O < 1 || P < 0 || cluster < 1 || cluster > C_MAX) return -(int)cudaErrorInvalidValue;
+  if (O < 1 || P < 0 || cluster != C_MAX) return -(int)cudaErrorInvalidValue;
   cudaError_t err = set_attributes();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr[1];
@@ -513,7 +517,7 @@ SLAM_API int slam_structure_ba(const float* cam_rvec, const float* cam_t,
                                float fx, float cx, float cy, float lam0, float huber, float ftol,
                                int max_iters, int cluster, cudaStream_t stream) {
   if (S < 1 || S > 65535 || F < 1 || F > F_MAX || P < 0 || O < 1 || max_iters < 0 ||
-      cluster < 1 || cluster > C_MAX)
+      cluster != C_MAX)
     return (int)cudaErrorInvalidValue;
   Problem pb;
   pb.obs_cam = obs_cam;

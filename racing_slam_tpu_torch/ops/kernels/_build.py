@@ -49,8 +49,8 @@ SIGNATURES = {
     # out, points_out, scratch|NULL, S, F, P, O, fx, cx, cy, lam0, huber, ftol, iters,
     # cluster, stream
     "slam_structure_ba": [_P] * 11 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P],
-    # q, k, v, mask_k, out, workspace, S, Kq, Kk, H, dh, chunks, scale, stream
-    "slam_flash_mha_seq": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # q, k, v, mask_k, out, workspace, S, Kq, Kk, H, dh, chunks, fold, scale, stream
+    "slam_flash_mha_seq": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 
 _lock = threading.Lock()

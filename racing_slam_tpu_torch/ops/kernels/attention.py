@@ -14,27 +14,36 @@ What bounds it on an H100: per call 2 * 2 * Kq * Kk * H * dh = 2.95 GFLOP
 of bf16 products (~3 us on the tensor cores) and Kq * Kk * H = 23 M
 exponentials (~5.5 us on the special-function units); 4.9 MB of f32
 operands (~1.5 us). At [2400, 4, 32] there are only 152 tiles of 64
-queries for 132 SMs, so the call is three launches (see the source): a
-pre-pass that rounds q, k and v to bf16 once into tiles laid out as the
-main kernel's shared memory wants them, plus the additive mask row; the
-main kernel, one CTA per (query tile, head, key chunk), a producer warp
-feeding a ring of key tiles by bulk asynchronous copies and a consumer
-warpgroup on wgmma, exp2 of logits pre-scaled in one FFMA; and a combine
-of the chunks' unnormalised (o, l, m). `default_chunks` splits the keys so
-that every SM holds several CTAs. `flash_mha_reference(..., tile_k=64,
-chunks=S)` is the same recurrence, split and combine.
+queries for 132 SMs, so the keys are split into chunks (see the source):
+a pre-pass rounds q, k and v to bf16 once into tiles laid out as the
+main kernel's shared memory wants them, plus the mask row; the main
+kernel, one CTA per (query tile, head, key chunk), one
+warpgroup on wgmma whose thread 0 feeds a ring of key tiles by bulk
+asynchronous copies, exp2 of logits scaled and masked in one FFMA, each
+chunk's recurrence from m = -1e9, l = 0; and a combine of the
+chunks' unnormalised (o, l, m) in chunk order. `default_chunks` splits
+one problem's keys so that every SM holds several CTAs.
+`flash_mha_reference(..., tile_k=64, chunks=n)` is the same recurrence,
+split and combine.
 
 Batched: S problems of one shape (LightGlue over the S frame pairs of a
 lockstep frame) take a leading S on every operand ([S, Kq, H, dh],
-[S, Kk, H, dh], [S, Kk]) and share each of the three launches, the
-problem a coordinate of every grid. The split of the keys is one
-problem's (`default_chunks` of one row, however many rows run), since it
-sets the order of the combine's sums: so each row equals the call on that
-row alone to the bit. One call is one count of `launches`, batched or not;
-`batched_launches` counts the calls that had a leading S.
+[S, Kk, H, dh], [S, Kk]) and share each launch, the problem a coordinate
+of every grid. The chunks are one problem's (`default_chunks` of one row,
+however many rows run), since they set the order of the combine's sums:
+so each row equals the call on that row alone to the bit. What S changes
+is whether the CTAs fold: `launch_plan` gives one CTA all of a tile's
+chunks where the S rows' tiles fill most of their last wave on the card
+(at [2400, 4, 32]: 4, 7 or 8 rows), and that CTA runs them one after the
+other, each as a CTA of one chunk would, then merges them itself, the
+combine's operations in the combine's order: the call is two launches. One call is one count of
+`launches`, batched or not; `batched_launches` counts the calls that had
+a leading S.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +54,10 @@ batched_launches = 0  # the calls of `launches` that ran S problems at once
 NEG = -1e9
 KEY_TILE = 64  # keys per tile of the kernel (csrc/attention_kernel.cu TK)
 QUERY_TILE = 64
+SMS = 132  # streaming multiprocessors of the H100
+SPLIT_PER_SM = 4  # CTAs of one chunk that one problem's split aims at on each SM
+CTAS_PER_SM = 5  # CTAs of the main kernel an SM holds (csrc MIN_CTAS)
+FOLD_FILL = 0.75  # least share of their last wave that folding CTAs must fill
 
 
 def flash_mha_reference(
@@ -114,11 +127,39 @@ def flash_mha_reference(
 
 
 def default_chunks(Kq: int, Kk: int, H: int) -> int:
-    """Key chunks of the kernel: enough CTAs for about four on each of the
-    H100's 132 SMs (one consumer warpgroup each), at most one chunk per
-    key tile."""
+    """Key chunks of one problem: enough CTAs of one chunk for about
+    SPLIT_PER_SM on each of the SMS SMs, at most one chunk per key tile. A
+    batched call takes one problem's chunks."""
     ctas = -(-Kq // QUERY_TILE) * H
-    return max(1, min(-(-Kk // KEY_TILE), -(-4 * 132 // ctas)))
+    return max(1, min(-(-Kk // KEY_TILE), -(-SPLIT_PER_SM * SMS // ctas)))
+
+
+class LaunchPlan(NamedTuple):
+    chunks: int  # key chunks of a problem (its combine's order)
+    tiles_per_chunk: int  # key tiles of a chunk
+    units: int  # (query tile, head) pairs of a problem
+    fold: bool  # one CTA a unit runs every chunk and merges them: no combine
+    ctas: int  # CTAs of the main kernel
+    launches: int  # kernel launches of the call
+
+
+def launch_plan(S: int, Kq: int, Kk: int, H: int, chunks: int | None = None) -> LaunchPlan:
+    """The kernel's geometry for S problems. The chunks (and so each
+    problem's bits) do not depend on S. The CTAs fold (one CTA a (problem,
+    query tile, head) runs every chunk and merges them, and no combine is
+    launched) where a problem has one chunk, or where those CTAs fill at
+    least FOLD_FILL of their last wave of CTAS_PER_SM x SMS: a folded CTA
+    is `chunks` times as long, so a thin last wave costs more than the
+    combine saves. At [2400, 4, 32] they fold at S = 4, 7 and 8, and run
+    one chunk a CTA, as a single call does, at S = 1-3, 5 and 6 (PERF.md,
+    measured both ways at every S)."""
+    chunks = chunks or default_chunks(Kq, Kk, H)
+    units = -(-Kq // QUERY_TILE) * H
+    slots = CTAS_PER_SM * SMS
+    fold = chunks == 1 or S * units >= FOLD_FILL * -(-S * units // slots) * slots
+    tiles = -(-Kk // KEY_TILE)
+    return LaunchPlan(chunks=chunks, tiles_per_chunk=-(-tiles // chunks), units=units, fold=fold,
+                      ctas=S * units * (1 if fold else chunks), launches=2 if fold else 3)
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:
@@ -137,7 +178,8 @@ def flash_mha(
     """[Kq, H, dh] f32 attention output, or [S, Kq, H, dh] for S problems
     given a leading S on every operand; query rows are not masked.
     `chunks`: the kernel's split of the keys (default `default_chunks` of
-    one problem); the twin on the CPU runs unsplit. The kernel has no
+    one problem; the CTAs fold as `launch_plan` says); the twin on the CPU
+    runs unsplit. The kernel has no
     backward (nor has the TPU kernel), and the twin's bf16 casts would pass
     gradients straight through, so an operand that requires grad raises, on
     either device: a loss takes `models.lightglue`'s float32 route."""
@@ -160,19 +202,18 @@ def flash_mha(
     _build.expect(k, "k", torch.float32, (*lead, Kk, H, dh))
     _build.expect(v, "v", torch.float32, (*lead, Kk, H, dh))
     _build.expect(mask_k, "mask_k", torch.bool, (*lead, Kk))
-    if chunks is None:
-        chunks = default_chunks(Kq, Kk, H)
+    plan = launch_plan(S, Kq, Kk, H, chunks)
     lib = _build.lib()
-    n_ws = lib.slam_flash_mha_seq_workspace_bytes(S, Kq, Kk, H, dh, chunks)
+    n_ws = lib.slam_flash_mha_seq_workspace_bytes(S, Kq, Kk, H, dh, plan.chunks)
     if n_ws == 0:
         raise ValueError(f"flash_mha kernel: no plan for S={S}, Kq={Kq}, Kk={Kk}, H={H}, "
-                         f"chunks={chunks}")
+                         f"{plan}")
     workspace = torch.empty((n_ws,), dtype=torch.uint8, device=q.device)
     out = torch.empty((*lead, Kq, H, dh), dtype=torch.float32, device=q.device)
     err = lib.slam_flash_mha_seq(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_k), _build.ptr(out),
-        _build.ptr(workspace), S, Kq, Kk, H, dh, chunks, 1.0 / float(dh) ** 0.5,
-        _build.stream(q.device),
+        _build.ptr(workspace), S, Kq, Kk, H, dh, plan.chunks, int(plan.fold),
+        1.0 / float(dh) ** 0.5, _build.stream(q.device),
     )
     _build.check(err, "flash_mha")
     global launches, batched_launches

@@ -14,12 +14,13 @@ points x O = 8 observations, F = 32 cameras) an iteration is ~20k
 observation updates and two sums over all points (the 54 values of the
 reduced system, then the trial cost) that every point waits for. The
 kernel runs the whole solve as one thread-block cluster of `CLUSTER` CTAs
-(16, non-portable): each CTA keeps its share of the points' state and
-observations in shared memory (up to 1024 points a CTA at O = 8, P <=
-16384; beyond, in a global scratch buffer), and the sums go through
-distributed shared memory (each CTA's partials into its rank's slot in
-rank 0, one cluster barrier, every CTA sums the slots in rank order), so
-every CTA takes the same decisions and two runs give the same bits. One
+(16, non-portable) of 160 threads, one point a thread up to 2560 points:
+each CTA keeps its share of the points' state and observations in shared
+memory (up to 1024 points a CTA at O = 8, P <= 16384; beyond, in a global
+scratch buffer), and the sums go through distributed shared memory (each
+CTA's partials into its rank's slot in rank 0, one cluster barrier, every
+CTA sums the slots in rank order), so every CTA takes the same decisions
+and two runs give the same bits. One
 launch per solve, no atomics, no host read; two cluster barriers an
 iteration. A refused cluster launch raises; there is no other path on the
 card. 16 CTAs measured faster than 8 (PERF.md).
@@ -28,8 +29,11 @@ Batched: C solves of one shape (the keyframe commits of the rows that
 commit on one lockstep frame) take a leading C on every operand,
 cam_rvec [C, F, 3], ..., free_slot [C], and return [C, 8] and [C, P, 3],
 in one launch of C clusters; each problem equals its solve alone to the
-bit. `launches` counts every launch, `batched_launches` the launches with
-a leading C (one each, whatever C is).
+bit, since every launch takes the same cluster, whatever C is. Two
+160-thread CTAs fit an SM, so the H100 holds 14 clusters at once: a
+lockstep frame's 8 commits run in one wave. `launches` counts every
+launch, `batched_launches` the launches with a leading C (one each,
+whatever C is).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from . import _build
 
 launches = 0
 batched_launches = 0  # the launches of `launches` that solved C problems at once
-CLUSTER = 16  # CTAs of the cluster; 8 is accepted by the kernel
+CLUSTER = 16  # CTAs of the cluster, the only size the kernel accepts
 
 
 def structure_ba_lm_reference(

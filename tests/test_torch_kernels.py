@@ -475,6 +475,35 @@ def test_k4_batched_equals_single_launches(cuda, C, P):
         np.testing.assert_array_equal(pts[c, :frozen], args[2][c, :frozen].cpu().numpy())
 
 
+@pytest.mark.parametrize("C", [1, 7, 8])
+def test_k4_commit_problems_batched_equal_single_launches(cuda, C):
+    """K4 over C of chip_smoke.py's commit problems (the bench dolly: 2432
+    points x 8 observations, F = 32, seeds 13.., free cameras 31, 30, 29,
+    28, ...) in one launch of C clusters, C = 8 being a lockstep frame on
+    which every row commits: each problem bit-equal to its launch alone
+    with the exit off and on, and held to the twin by chip_smoke._k4_rule
+    (every point within twice the twin's own spread over ten reorderings
+    of its points, the weak-depth points near the epipole). The card holds
+    all 8 clusters at once."""
+    import chip_smoke as cs
+
+    data = [cs._k4_data(cuda, seed=13 + i, free=31 - i % 4) for i in range(C)]
+    kw = data[0][1]
+    args = [torch.stack([d[0][j] for d in data]) for j in range(8)]
+    assert k4.max_active_clusters(2432, 8) >= 8
+    for fkw in (dict(kw, ftol=0.0), kw):
+        out, pts = k4.structure_ba_lm(*args, **fkw)
+        for c, (row, _, _) in enumerate(data):
+            one, one_pts = k4.structure_ba_lm(*row, **fkw)
+            assert torch.equal(out[c], one) and torch.equal(pts[c], one_pts), f"problem {c}"
+    out, pts = k4.structure_ba_lm(*args, **kw, ftol=0.0)
+    ref, rpts = k4.structure_ba_lm_reference(*args, **kw, ftol=0.0)
+    out, pts, ref, rpts = [t.cpu().numpy() for t in (out, pts, ref, rpts)]
+    for c, (row, _, d) in enumerate(data):
+        spread = cs._twin_order_spread(k4, row, kw, n=10)
+        cs._k4_rule(out[c], pts[c], ref[c], rpts[c], d, spread, f"K4 problem {c}")
+
+
 @pytest.mark.parametrize("Kq,Kk,dh,valid,chunks", [
     (2400, 130, 32, 0.8, None),  # fewer keys than one chunk of the default split
     (2400, 130, 32, 0.8, 4),  # 3 key tiles in 4 chunks: the last all padding
@@ -544,6 +573,33 @@ def test_k6_batched_equals_single_calls(cuda, Kq, Kk, dh, valid):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, want[s], atol=0.05 * np.sqrt(np.mean(want[s] ** 2)), rtol=0)
     assert k6.batched_launches == before[1] + 1  # the single calls counted apart
+
+
+@pytest.mark.parametrize("Kk", [2400, 2333])
+@pytest.mark.parametrize("S", [1, 2, 7, 8])
+def test_k6_rows_equal_single_calls_at_every_S(cuda, S, Kk):
+    """K6 over S rows at LightGlue's [2400, 4, 32], each row with its own
+    share of valid keys (so a ragged count of valid keys across rows, one
+    row all masked at S >= 7): whatever CTAs `launch_plan` gives the S rows
+    (one chunk a CTA at S = 1 and 2, every chunk of a tile in one CTA that
+    merges them itself at S = 7 and 8), each row bit-equal to a call on
+    that row alone, whose CTAs each run one chunk; and within
+    test_k6_kernel_matches_twin's limit of the twin."""
+    rng = np.random.default_rng(80 + S + Kk)
+    H, dh, Kq = 4, 32, 2400
+    shares = (0.95, 0.9, 0.8, 0.7, 0.5, 0.3, 0.1, 0.0)[-S:] if S > 1 else (0.6,)
+    q, k, v = [torch.from_numpy(rng.normal(size=(S, n, H, dh)).astype(np.float32)).to(cuda)
+               for n in (Kq, Kk, Kk)]
+    mask = torch.from_numpy(np.stack([rng.random(Kk) < f for f in shares])).to(cuda)
+    plan = k6.launch_plan(S, Kq, Kk, H)
+    assert plan.chunks == k6.launch_plan(1, Kq, Kk, H).chunks
+    got = k6.flash_mha(q, k, v, mask)
+    want = k6.flash_mha_reference(q, k, v, mask).cpu().numpy()
+    for s in range(S):
+        assert torch.equal(got[s], k6.flash_mha(q[s], k[s], v[s], mask[s])), f"row {s}, {plan}"
+        g = got[s].cpu().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, want[s], atol=0.05 * np.sqrt(np.mean(want[s] ** 2)), rtol=0)
 
 
 def _k2_inputs(rng, P, K, W, H, D, radius, O=8, ties=20):
