@@ -837,11 +837,14 @@ def check_motion_ba_batched(dev) -> dict:
     plain = cuda_ms(lambda: k.motion_ba_lm_reference(*args, **kw), n=3, rounds=1)
     n_valid = args[3].sum(dim=1).cpu().numpy()
     ops = int(sum(210 * int(v) * int(it) for v, it in zip(n_valid, out[:, 7])))
+    clusters = k.max_active_clusters(args[1].shape[1])
+    assert clusters >= MULTI_S, f"K3: only {clusters} clusters fit on the card at once"
     log(f"K3 batched S={MULTI_S}: rows bit-equal to single launches, |pose| err vs twin "
         f"{err:.3e}, iterations {out[:, 7].astype(int).tolist()}; one launch {ms:.4f} ms, "
-        f"{MULTI_S} single launches {singles:.4f} ms")
+        f"{MULTI_S} single launches {singles:.4f} ms; {clusters} 8-CTA clusters co-resident")
     return dict(name=f"motion_ba_lm[S={MULTI_S}]", module=k, max_abs_err=err, ms=ms,
                 plain_ms=plain, library_ms=None, singles_ms=singles,
+                co_resident_clusters=clusters,
                 **bound(nbytes(*args) + MULTI_S * 8 * 4, {"f32": ops}),
                 source="racing_slam_tpu_torch/csrc/motion_ba_kernel.cu",
                 replaces="racing_slam_tpu/ops/pallas/motion_ba_kernel.py:309")
@@ -2023,7 +2026,9 @@ def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) ->
     assertions); every sequence's ATE <= 10 % and coverage >= 0.85.
     Printed: the same worlds through MultiSlam and one by one through Slam
     (one_by_one), under constant velocity and under constant position,
-    every row bit-equal to its Slam to the end on both (asserted), and,
+    with re-initialisation off as in run_multi_path (a Slam stepped a frame
+    a call runs no loss check, MultiSlam's lockstep one does), every row
+    bit-equal to its Slam to the end on both (asserted), and,
     from this call, total and per-sequence fps at S=1 and S=8 alternating
     1, 8, 8, 1 (tools/scaling.alternate)."""
     from racing_slam_tpu_torch.tools.scaling import alternate
@@ -2037,7 +2042,8 @@ def run_multi(dev, kernels: list, cam, worlds: list, profile_frames: int = 0) ->
     # and under constant position.
     rows = ms.states_per_sequence()
     res["one_by_one"] = {
-        p: one_by_one(dev, cam, worlds, path_config("classical", pose_prediction=p), p,
+        p: one_by_one(dev, cam, worlds,
+                      path_config("classical", pose_prediction=p, reinit_on_lost=False), p,
                       rows if p == cfg.pose_prediction else None)
         for p in ("constant_velocity", "constant_position")}
     for p, obo in res["one_by_one"].items():

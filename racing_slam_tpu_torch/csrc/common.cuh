@@ -43,7 +43,10 @@ __device__ __forceinline__ void block_sum(float (&vals)[N], float* red) {
 }
 
 // Rodrigues coefficients, as ops/ba.py residual_and_jacobians: R = I + a W +
-// b W^2, right Jacobian J_r = I - b W + B W^2.
+// b W^2, right Jacobian J_r = I - b W + B W^2. SINCOS takes the sine and
+// cosine from one sincosf (one argument reduction) in place of sinf and
+// cosf.
+template <bool SINCOS = false>
 __device__ __forceinline__ void rodrigues(const float w[3], float R[9], float Jr[9]) {
   const float wx = w[0], wy = w[1], wz = w[2];
   const float theta2 = wx * wx + wy * wy + wz * wz;
@@ -51,10 +54,16 @@ __device__ __forceinline__ void rodrigues(const float w[3], float R[9], float Jr
   const bool small = theta2 < 1e-8f;
   const float safe1 = small ? 1.0f : theta;
   const float safe2 = small ? 1.0f : theta2;
-  const float a = small ? 1.0f - theta2 / 6.0f : sinf(theta) / safe1;
-  const float b = small ? 0.5f - theta2 / 24.0f : (1.0f - cosf(theta)) / safe2;
-  const float B = small ? 1.0f / 6.0f - theta2 / 120.0f
-                        : (theta - sinf(theta)) / (safe2 * safe1);
+  float sn, cs;
+  if constexpr (SINCOS) {
+    sincosf(theta, &sn, &cs);
+  } else {
+    sn = sinf(theta);
+    cs = cosf(theta);
+  }
+  const float a = small ? 1.0f - theta2 / 6.0f : sn / safe1;
+  const float b = small ? 0.5f - theta2 / 24.0f : (1.0f - cs) / safe2;
+  const float B = small ? 1.0f / 6.0f - theta2 / 120.0f : (theta - sn) / (safe2 * safe1);
   R[0] = 1.0f - b * (wy * wy + wz * wz);
   R[1] = b * wx * wy - a * wz;
   R[2] = b * wx * wz + a * wy;

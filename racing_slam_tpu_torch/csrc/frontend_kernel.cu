@@ -38,6 +38,18 @@
 //   at 640x480 that is 8 x 15 = 120 blocks, one wave on 132 SMs (64 x 32
 //   tiles are 150 blocks, and the 18 of the second wave double the time).
 // - The min eigenvalue's square root is the hardware's (sqrt.approx).
+//
+// Over B > 1 frames (the lockstep step of B sequences) the single frame's
+// tiles run wave after wave: 960 CTAs at B = 8 on 132 SMs, 7.3 waves, each
+// as long as one CTA's critical path, and each CTA stages 2.4x its
+// outputs. That launch takes 80 x 120 tiles instead (BATCH_TH; 218 KB of
+// shared memory, of the 227 KB a CTA may have): 4 x 8 = 32 CTAs a 640x480
+// frame, 256 at B = 8, 1.9 waves, staging 1.6x their outputs, and with
+// more runs a pass the 1024 threads stand idle less often (PERF.md has the
+// shapes tried: persistent CTAs that load the next tile during the
+// current one, and two 512-thread CTAs an SM, were slower). Tile geometry
+// never enters a pixel's arithmetic, so every frame of a B-frame launch
+// equals the single launch on that frame to the bit.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -52,6 +64,7 @@ constexpr int RUN = 8;  // outputs a thread computes from one register window
 
 constexpr int TW = 80, TH = 32;  // output tile
 constexpr int THREADS = 1024;
+constexpr int BATCH_TH = 120;  // tile height of the launch over B > 1 frames
 
 struct Taps {
   float k1[2 * R1 + 1];
@@ -61,10 +74,11 @@ struct Taps {
 __host__ __device__ constexpr int odd(int n) { return n | 1; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The planes of one tile, as offsets (floats) into dynamic shared memory.
-// Region origins relative to the tile's top-left pixel: image -13,
+// The planes of one TW x TH tile, as offsets (floats) into dynamic shared
+// memory. Region origins relative to the tile's top-left pixel: image -13,
 // pre-blur -9, gradients -8, response -7 (in rows and in columns).
-struct L {
+template <int TH>
+struct Layout {
   static constexpr int IH = TH + 2 * HALO, IW = TW + 2 * HALO, IS = odd(IW);  // image
   static constexpr int BW = TW + 18, H1S = odd(BW);                // horizontal pre-blur
   static constexpr int H2H = TH + 2 * R2, H2S = odd(TW);           // horizontal desc blur
@@ -121,10 +135,13 @@ __device__ __forceinline__ void window_max15(const float (&x)[RUN + 2 * NMS], fl
   }
 }
 
+// One CTA a TW x TH tile: grid (tiles in x, tiles in y, B).
+template <int TH>
 __global__ void __launch_bounds__(THREADS)
 frontend_kernel(const float* __restrict__ img, const float* __restrict__ mask,
                 float* __restrict__ resp_out, float* __restrict__ peaks_out,
                 float* __restrict__ blur2_out, int H, int W, Taps taps, int border) {
+  using L = Layout<TH>;
   extern __shared__ float smem[];
   float* s_img = smem + L::I;
   float* s_h1 = smem + L::H1;
@@ -354,6 +371,20 @@ frontend_kernel(const float* __restrict__ img, const float* __restrict__ mask,
   }
 }
 
+// The kernel for tiles of height TH over the B frames.
+template <int TH>
+cudaError_t launch(const float* img, const float* mask, float* resp, float* peaks, float* blur2,
+                   int B, int H, int W, const Taps& taps, int border, cudaStream_t stream) {
+  constexpr size_t smem = Layout<TH>::FLOATS * sizeof(float);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      frontend_kernel<TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  frontend_kernel<TH><<<grid, THREADS, smem, stream>>>(img, mask, resp, peaks, blur2, H, W,
+                                                        taps, border);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 SLAM_API int slam_frontend(const float* img, const float* mask, float* resp, float* peaks,
@@ -363,14 +394,8 @@ SLAM_API int slam_frontend(const float* img, const float* mask, float* resp, flo
   Taps taps;
   for (int i = 0; i < 2 * R1 + 1; ++i) taps.k1[i] = taps1[i];
   for (int i = 0; i < 2 * R2 + 1; ++i) taps.k2[i] = taps2[i];
-  constexpr size_t smem = L::FLOATS * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  frontend_kernel<<<grid, THREADS, smem, stream>>>(img, mask, resp, peaks, blur2, H, W, taps,
-                                                   border);
-  return (int)cudaGetLastError();
+  return (int)(B == 1 ? launch<TH> : launch<BATCH_TH>)(img, mask, resp, peaks, blur2, B, H, W,
+                                                       taps, border, stream);
 }
 
 SLAM_API const char* slam_error_string(int err) {

@@ -130,6 +130,8 @@ def lib() -> ctypes.CDLL:
             handle.slam_structure_ba_scratch_bytes.restype = ctypes.c_size_t
             handle.slam_structure_ba_max_clusters.argtypes = [_I, _I, _I]
             handle.slam_structure_ba_max_clusters.restype = ctypes.c_int
+            handle.slam_motion_ba_max_clusters.argtypes = [_I]
+            handle.slam_motion_ba_max_clusters.restype = ctypes.c_int
             handle.slam_flash_mha_seq_workspace_bytes.argtypes = [_I] * 6
             handle.slam_flash_mha_seq_workspace_bytes.restype = ctypes.c_size_t
             handle.slam_error_string.argtypes = [ctypes.c_int]

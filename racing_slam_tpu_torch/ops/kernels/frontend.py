@@ -18,6 +18,12 @@ intermediate there or in registers, and writes only the three output maps
 (120 blocks at 640x480, one wave). Each of its seven separable passes has
 a thread compute a run of 8 outputs from a register window, so a tap is
 read from shared memory once a run, not once an output (see the source).
+
+Over B > 1 frames ([B, H, W], the lockstep step of B sequences) one launch
+takes 80x120 tiles (256 blocks at B = 8: two waves where 80x32 tiles take
+seven), and every frame's maps equal the single launch's on that frame to
+the bit: tile geometry never enters a pixel's arithmetic. One launch is one
+count, whatever B is.
 """
 
 from __future__ import annotations

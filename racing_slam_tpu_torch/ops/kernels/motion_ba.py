@@ -12,15 +12,21 @@ What bounds it on an H100: latency. A solve is <= 10 iterations over K =
 2400 rows (~100 KB) and a 28-value reduction; as plain PyTorch each
 iteration is ~100 small kernel launches, and the early exit needs either a
 host read per iteration or, as the twin does, every iteration run under a
-mask. The kernel runs the whole loop in one block: one launch per solve, a
-real early exit, no host synchronisation. The valid rows are compacted
-once into shared memory, and each iteration is one fused pass at the trial
-pose (cost, weights, H and g together) and one block reduction.
+mask. The kernel runs the whole loop in one thread-block cluster of 8 CTAs
+on 8 SMs: one launch per solve, a real early exit, no host
+synchronisation. Each CTA compacts the valid rows of its eighth of the K
+rows into its shared memory once; an iteration is one fused pass at the
+trial pose (cost, weights, H and g together), the partial sums stored
+into every CTA's shared memory by stores that count themselves on a
+barrier there (st.async), and the same totals, decision and 6x6 solve in
+every thread. K is limited by a CTA's shared
+memory to about 89000 rows (a larger K raises).
 
 Batched: S solves (the lockstep step of S sequences) take leading-S
 operands, pose0 [S, 6], kp_uv [S, K, 2], point_xyz [S, K, 3], valid [S, K],
-and return [S, 8], in one launch of S blocks; each row equals the solve of
-that row alone to the bit. One launch is one count, whatever S is.
+and return [S, 8], in one launch of S clusters; each row equals the solve of
+that row alone to the bit, since every launch takes the same cluster and
+sums in the same order. One launch is one count, whatever S is.
 """
 
 from __future__ import annotations
@@ -146,3 +152,13 @@ def motion_ba_lm(
     global launches
     launches += 1
     return out
+
+
+def max_active_clusters(K: int) -> int:
+    """How many of the solve's clusters for K rows the card holds at once
+    (cudaOccupancyMaxActiveClusters); the solves of a batched launch past
+    that wait for a free cluster."""
+    n = _build.lib().slam_motion_ba_max_clusters(K)
+    if n < 0:
+        _build.check(-n, "motion_ba max_active_clusters")
+    return n

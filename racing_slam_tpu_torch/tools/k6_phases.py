@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -69,20 +68,6 @@ SLAM_API int slam_k6_phases(unsigned long long* out) {
 """
 
 
-def patched_tree() -> Path:
-    """build/k6_phases/csrc: the sources with the probed attention kernel."""
-    out = REPO / "build" / "k6_phases" / "csrc"
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(CSRC, out)
-    src = (out / "attention_kernel.cu").read_text()
-    for old, new in PATCHES:
-        if src.count(old) != 1:
-            raise RuntimeError(f"k6_phases: the kernel no longer has {old!r} once")
-        src = src.replace(old, new)
-    (out / "attention_kernel.cu").write_text(src + READER)
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pads", default="0,30000,80000,150000", help="extra smem bytes a CTA")
@@ -95,7 +80,8 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    so, _ = kernel_ab.build("k6_phases", patched_tree())
+    so, _ = kernel_ab.build("k6_phases", kernel_ab.patched_tree(
+        "k6_phases", CSRC, "attention_kernel.cu", PATCHES, READER))
     lib = ctypes.CDLL(str(so))
     lib.slam_k6_phases.argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda", 0)

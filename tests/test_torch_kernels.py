@@ -10,6 +10,8 @@ configuration:
 Tolerances and their reasons are chip_smoke.py's check_* docstrings.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -91,14 +93,27 @@ def test_k1_tiles_match_twin(cuda, shape, masked):
     assert (got[1] > 0).sum() > (0 if H < 30 else 20)
 
 
+@functools.lru_cache(maxsize=None)
+def _k1_base(H, W):
+    return _texture(np.random.default_rng(8), H, W)
+
+
+@pytest.mark.parametrize("B", [1, 2, 7, 8, 9, 17])
+@pytest.mark.parametrize("shape", [(480, 640), (720, 1280), (100, 330)],
+                         ids=["640x480", "1280x720", "ragged"])
 @pytest.mark.parametrize("masked", [False, True])
-def test_k1_batched_equals_single_launches(cuda, masked):
-    """K1 over the multi path's [8, 480, 640] frames in one launch: one
-    count, each frame's maps equal to a launch on that frame alone to the
-    bit, and the stack within check_frontend's tolerances of the twin."""
-    rng = np.random.default_rng(8)
-    H, W = 480, 640
-    img = np.stack([_texture(rng, H, W) for _ in range(8)])
+def test_k1_batched_equals_single_launches(cuda, B, shape, masked):
+    """K1 over B frames in one launch (B = 1 takes the single frame's
+    80x32 tiles; B > 1 the 80x120 tiles: 32 blocks a 640x480 frame, 96 at
+    720p, 5 at 100x330, so the B's fall on both sides of the card's 132
+    SMs and of its waves): one count, each frame's maps equal to a launch
+    on that frame alone to the bit, and the stack within check_frontend's
+    tolerances of the twin. The frames are one texture shifted by a
+    different amount each, scaled by a different contrast."""
+    H, W = shape
+    base = _k1_base(H, W)
+    img = np.stack([np.roll(base, (13 * i, 29 * i), axis=(0, 1)) * (1.0 - 0.03 * i)
+                    for i in range(B)]).astype(np.float32)
     m = np.ones((H, W), np.float32)
     m[-H // 5:, :] = 0
     m[: H // 12, :] = 0
@@ -107,14 +122,14 @@ def test_k1_batched_equals_single_launches(cuda, masked):
     before = k1.launches
     got = k1.corner_frontend_fused(x, mask)
     assert k1.launches == before + 1
-    for i in range(8):
+    for i in range(B):
         single = k1.corner_frontend_fused(x[i], mask)
-        assert all(torch.equal(g[i], t) for g, t in zip(got, single))
+        assert all(torch.equal(g[i], t) for g, t in zip(got, single)), f"frame {i} differs"
     got = [t.cpu().numpy() for t in got]
     want = [t.cpu().numpy() for t in k1.corner_frontend_fused_reference(x, mask)]
     np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(got[2], want[2], atol=1e-5)
-    flips = ((got[1] > 0) != (want[1] > 0)).reshape(8, -1).mean(axis=1)
+    flips = ((got[1] > 0) != (want[1] > 0)).reshape(B, -1).mean(axis=1)
     assert flips.max() <= 1e-4, flips
     both = (got[1] > 0) & (want[1] > 0)
     np.testing.assert_allclose(got[1][both], want[1][both], atol=2e-5, rtol=1e-4)
@@ -740,8 +755,9 @@ def _k3_problem(rng, K, fx=480.0, cx=320.0, cy=240.0):
 @pytest.mark.parametrize("case", ["all_iters", "lambda_exit", "K0", "K1025", "K2561", "K7200",
                                   "K12000"])
 def test_k3_fused_pass_cases_match_twin(cuda, case):
-    """K3 (rows compacted in shared memory, streamed past what shared memory
-    holds: K = 12000) against its twin: rvec 1e-5, t 1e-4, cost within 1 %.
+    """K3 (each CTA of the cluster with its slice of the rows compacted in
+    its shared memory: 0 to 1500 rows a CTA from K = 0 to 12000) against
+    its twin: rvec 1e-5, t 1e-4, cost within 1 %.
     `all_iters` runs all 10 iterations (ftol = 0); `lambda_exit` starts at
     the optimum with lambda 1e6, so steps are rejected until lambda > 1e8
     stops the loop. The sizes run with ftol = 0 too (all 10 iterations on
@@ -832,34 +848,50 @@ def test_k2_batched_equals_single_launches(cuda, D, K):
             assert torch.equal(sk[s], bk[s]) and torch.equal(sd[s], bd[s])
 
 
-@pytest.mark.parametrize("K", [2400, 12000])
-def test_k3_batched_equals_single_launches(cuda, K):
-    """K3 over S = 8 solves in one launch (rows in shared memory at K =
-    2400, streamed at 12000): each row bit-equal to a launch of that row
-    alone, one count for the batched call, and each row within the twin's
-    rules (rvec 1e-5, t 1e-4, cost 1 %, all 10 iterations with ftol = 0).
-    Row 2 has no valid row (its pose must come back unchanged) and row 6
-    starts at another pose."""
-    S = 8
+@pytest.mark.parametrize("K", [2400, 2401, 12000])
+@pytest.mark.parametrize("S", [1, 2, 7, 8])
+def test_k3_batched_equals_single_launches(cuda, S, K):
+    """K3 over S solves in one launch of S 8-CTA clusters (K = 2401 is no
+    multiple of the cluster, so the last CTA's slice is shorter; 12000
+    puts 1500 rows in a CTA's shared memory): each row bit-equal to a
+    launch of that row alone, one count for the batched call, all S
+    clusters co-resident on the card, and each row within the twin's
+    rules (rvec 1e-5, t 1e-4, cost 1 %). Twice: with ftol = 0 (all 10
+    iterations on both sides) and with the tolerance exit, where the rows
+    start at poses perturbed by different amounts and the last row (S >=
+    2) has no valid row, so the rows stop after different iteration counts
+    (the empty row runs all 10: its cost stays 0 and every step is
+    rejected) and its pose must come back unchanged."""
     probs = [_k3_problem(np.random.default_rng(200 + s), K) for s in range(S)]
-    probs[2][0][3][:] = False
-    probs[6][0][0] = probs[6][0][0] + torch.tensor([0.01, 0.0, -0.01, 0.05, 0.0, 0.02])
+    for s, (args, _) in enumerate(probs):
+        args[0] = args[0] + torch.tensor([0.01, 0.0, -0.01, 0.05, 0.0, 0.02]) * (s % 4) / 2
+    if S > 1:
+        probs[-1][0][3][:] = False
     args = [torch.stack([p[0][i] for p in probs]).to(cuda) for i in range(4)]
-    kw = dict(probs[0][1], max_iters=10, ftol=0.0)
-    before = k3.launches
-    out = k3.motion_ba_lm(*args, **kw)
-    assert k3.launches == before + 1 and out.shape == (S, 8)
-    ref = k3.motion_ba_lm_reference(*args, **kw).cpu().numpy()
-    for s in range(S):
-        one = k3.motion_ba_lm(*[a[s] for a in args], **kw)
-        assert torch.equal(out[s], one), f"row {s} differs from its launch"
-    out = out.cpu().numpy()
-    np.testing.assert_array_equal(out[2, :6], args[0][2].cpu().numpy())
-    for s in set(range(S)) - {2}:
-        np.testing.assert_allclose(out[s, :3], ref[s, :3], atol=1e-5)
-        np.testing.assert_allclose(out[s, 3:6], ref[s, 3:6], atol=1e-4)
-        assert abs(out[s, 6] - ref[s, 6]) <= 0.01 * ref[s, 6] + 1e-10, (s, out[s, 6], ref[s, 6])
-        assert out[s, 7] == ref[s, 7] == 10
+    assert k3.max_active_clusters(K) >= S
+    empty = [S - 1] if S > 1 else []
+    for ftol in (0.0, None):
+        kw = dict(probs[0][1], max_iters=10, **({} if ftol is None else {"ftol": ftol}))
+        before = k3.launches
+        out = k3.motion_ba_lm(*args, **kw)
+        assert k3.launches == before + 1 and out.shape == (S, 8)
+        ref = k3.motion_ba_lm_reference(*args, **kw).cpu().numpy()
+        for s in range(S):
+            one = k3.motion_ba_lm(*[a[s] for a in args], **kw)
+            assert torch.equal(out[s], one), f"row {s} differs from its launch (ftol {ftol})"
+        out = out.cpu().numpy()
+        for s in empty:
+            np.testing.assert_array_equal(out[s, :6], args[0][s].cpu().numpy())
+            assert out[s, 7] == 10
+        for s in set(range(S)) - set(empty):
+            np.testing.assert_allclose(out[s, :3], ref[s, :3], atol=1e-5)
+            np.testing.assert_allclose(out[s, 3:6], ref[s, 3:6], atol=1e-4)
+            assert abs(out[s, 6] - ref[s, 6]) <= 0.01 * ref[s, 6] + 1e-10, (s, out[s, 6], ref[s, 6])
+            if ftol == 0.0:
+                assert out[s, 7] == ref[s, 7] == 10
+        print(f"K3 S={S} K={K} ftol={ftol}: iterations {out[:, 7].astype(int).tolist()}")
+        if ftol is None and S > 1:
+            assert len(set(out[:, 7].tolist())) > 1, out[:, 7]
 
 
 def test_k5_batched_equals_single_launches(cuda):
